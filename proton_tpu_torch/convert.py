@@ -1,0 +1,62 @@
+"""Build the port's state from the JAX package's pytrees, given as numpy
+arrays: any object with the field names of proton_tpu's ``Mesh``,
+``CellGeom``, ``CutData``, ``CutCellBatch``, ``CondensedCL`` or
+``GridVecCL`` (``np.asarray`` is applied to each field). The tests use
+these so that each stage of the two packages runs from identical inputs.
+This module imports neither JAX nor proton_tpu."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .core.geometry import CellGeom
+from .core.mesh import Mesh
+from .cut.classify import CutData
+from .cut.methods import CutCellBatch
+from .methods.cells_last import CondensedCL, GridVecCL
+
+
+def tensor(a, device) -> torch.Tensor:
+    """numpy (or array-like) -> tensor on ``device``; integer arrays
+    become int64 (torch's index type), other dtypes are kept."""
+    a = np.asarray(a)
+    if a.dtype.kind in "iu" and a.dtype != np.int8:
+        a = a.astype(np.int64)
+    return torch.as_tensor(np.array(a), device=device)
+
+
+def _fields(cls, obj, device, **override):
+    return cls(**{f: override[f] if f in override else
+                  tensor(getattr(obj, f), device) for f in cls._fields})
+
+
+def mesh(m, device) -> Mesh:
+    return Mesh(points=tensor(m.points, device),
+                cell_ptids=tensor(m.cell_ptids, device),
+                cell_npts=tensor(m.cell_npts, device),
+                cell_faces=tensor(m.cell_faces, device),
+                face_ptids=tensor(m.face_ptids, device),
+                face_bnd=tensor(m.face_bnd, device),
+                kind=m.kind, all_quads=bool(m.all_quads))
+
+
+def cell_geom(g, device) -> CellGeom:
+    return _fields(CellGeom, g, device)
+
+
+def cut_data(c, device) -> CutData:
+    return CutData(**{f: tensor(getattr(c, f), device) for f in
+                      CutData.__dataclass_fields__})
+
+
+def cut_cell_batch(b, device) -> CutCellBatch:
+    return _fields(CutCellBatch, b, device, geom=cell_geom(b.geom, device))
+
+
+def condensed_cl(c, device) -> CondensedCL:
+    return _fields(CondensedCL, c, device)
+
+
+def grid_vec_cl(x, device) -> GridVecCL:
+    return _fields(GridVecCL, x, device)

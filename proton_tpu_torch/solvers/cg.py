@@ -1,0 +1,105 @@
+"""Preconditioned conjugate gradient (JAX counterpart:
+proton_tpu/solvers/cg.py; reference conjugated_gradient,
+solver_cg.hpp:44-144).
+
+The JAX ``lax.while_loop`` becomes a Python loop with the same
+recurrences, the same exit tests in the same order (``rel < tol``, then
+``it > max_iter``, then divergence) and the same returned iteration
+count. The exit test reads the residual norm on the host once per
+iteration.
+
+Vectors may be a tensor or a NamedTuple of tensors (the face grids);
+inner products reduce over all members.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, NamedTuple, Optional
+
+import torch
+
+CONVERGED = 0
+DIVERGED = 1
+MAX_ITER_REACHED = 2
+
+
+@dataclasses.dataclass(frozen=True)
+class CGParams:
+    """cg_params defaults mirrored from solver_cg.hpp:54-60."""
+
+    convergence_threshold: float = 1e-9
+    divergence_threshold: float = 100.0
+    max_iter: int = 1000
+    apply_preconditioner: bool = False
+
+
+class CGResult(NamedTuple):
+    x: object
+    exit_reason: int
+    iterations: int
+    rel_residual: float
+
+
+def _map(fn, *trees):
+    if isinstance(trees[0], torch.Tensor):
+        return fn(*trees)
+    return type(trees[0])(*(fn(*leaves) for leaves in zip(*trees)))
+
+
+def _leaves(tree):
+    return (tree,) if isinstance(tree, torch.Tensor) else tuple(tree)
+
+
+def _vdot(a, b):
+    parts = [torch.sum(x * y) for x, y in zip(_leaves(a), _leaves(b))]
+    return sum(parts[1:], parts[0])
+
+
+def _axpy(alpha, x, y):
+    return _map(lambda xa, ya: alpha * xa + ya, x, y)
+
+
+def conjugated_gradient(apply_A: Callable, b, diag=None,
+                        params: CGParams = CGParams(),
+                        precond: Optional[Callable] = None) -> CGResult:
+    """PCG from x0 = 0 (solver_cg.hpp:63-144). With ``apply_preconditioner``
+    and no explicit ``precond``, the Jacobi preconditioner 1/diag is used
+    (``diag`` required)."""
+    if precond is None:
+        if params.apply_preconditioner:
+            if diag is None:
+                raise ValueError("Jacobi preconditioning requires diag(A)")
+            inv_diag = _map(lambda dd: 1.0 / dd, diag)
+
+            def precond(r):
+                return _map(torch.mul, r, inv_diag)
+        else:
+            def precond(r):
+                return r
+
+    x = _map(torch.zeros_like, b)
+    r = b
+    d = precond(r)
+    rho = _vdot(r, d)
+    nr0 = torch.sqrt(_vdot(r, r))
+    it, exit_code, rel = 0, -1, 1.0
+    while exit_code < 0:
+        y = apply_A(d)
+        alpha = rho / _vdot(d, y)
+        x = _axpy(alpha, d, x)
+        r = _axpy(-alpha, y, r)
+        rel = float(torch.sqrt(_vdot(r, r)) / nr0)
+        if rel < params.convergence_threshold:
+            exit_code = CONVERGED
+        elif it > params.max_iter:
+            exit_code = MAX_ITER_REACHED
+        elif rel > params.divergence_threshold:
+            exit_code = DIVERGED
+        else:
+            z = precond(r)
+            rho_new = _vdot(r, z)
+            d = _axpy(rho_new / rho, d, z)
+            rho = rho_new
+        it += 1
+    return CGResult(x, exit_code, it, rel)

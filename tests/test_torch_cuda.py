@@ -1,0 +1,57 @@
+"""Tests of proton_tpu_torch that need an NVIDIA GPU: each hand-written
+kernel against its plain PyTorch version on the card. They skip with a
+reason where no card is present. This file imports neither JAX nor
+proton_tpu, so on a machine without JAX it runs alone:
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from proton_tpu_torch.core.geometry import cell_geometry
+from proton_tpu_torch.core.mesh import make_poly_mesh
+from proton_tpu_torch.methods import fused_assembly as fa
+
+
+def _jittered_cuda_mesh(N, seed):
+    """The generated N x N mesh with interior points moved (general
+    convex quads), on the card."""
+    mesh = make_poly_mesh(Nx=N, Ny=N, device="cuda")
+    pts = mesh.points.cpu().numpy()
+    rng = np.random.default_rng(seed)
+    inner = (pts > 0).all(1) & (pts < 1).all(1)
+    pts[inner] += rng.uniform(-0.15 / N, 0.15 / N, (inner.sum(), 2))
+    return mesh.with_points(torch.as_tensor(pts, device="cuda"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-11),
+                                       (torch.float32, 1e-4)])
+@pytest.mark.parametrize("cd,fd", [(1, 0), (2, 1), (3, 2), (1, 1)])
+def test_fused_assembly_kernel_matches_plain(cd, fd, dtype, tol):
+    """K1 against its plain version on a jittered 37x37 mesh (a ragged
+    last block), max|diff| / max|plain| < tol."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    mesh = _jittered_cuda_mesh(37, 3)
+    inp = tuple(a.to(dtype) for a in fa.pack_inputs(mesh, cell_geometry(mesh)))
+    before = fa.fused_local_operator.launches
+    out = fa.fused_local_operator(*inp, cd, fd)
+    torch.cuda.synchronize()
+    assert fa.fused_local_operator.launches == before + 1
+    ref = fa.fitted_local_operator_plain(*inp, cd, fd)
+    assert float((out - ref).abs().max() / ref.abs().max()) < tol
+
+
+@pytest.mark.cuda
+def test_fused_assembly_kernel_rejects_bad_layout():
+    """A non-contiguous input on the card raises instead of launching."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    mesh = make_poly_mesh(Nx=8, Ny=8, device="cuda")
+    inp = list(fa.pack_inputs(mesh, cell_geometry(mesh)))
+    inp[1] = inp[1].T.contiguous().T
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.fused_local_operator(*inp, 2, 1)
