@@ -7,22 +7,27 @@ Phases, in order, each printing its numbers on lines of its own:
 
 1. device: the card's name, and its name and power limit from nvidia-smi;
 2. build: K1 (csrc/fused_assembly.cu) with nvcc for sm_90a, with the
-   registers and spills ptxas reports;
+   registers, stack and spills ptxas reports for every instantiation,
+   its dynamic shared memory and its resident blocks per SM;
 3. kernels: K1 against its plain PyTorch version on the 1024^2 flagship
-   mesh, float64 at k=0, 1, 2 (max|diff|/max|plain| < 1e-11) and float32
-   at k=1 (< 1e-4), with the kernel's time (CUDA events), the plain
-   version's time and the bound on this card;
+   mesh, float64 at k=0, 1, 2 and at (cell, face) degrees (1, 1)
+   (max|diff|/max|plain| < 1e-11) and float32 at k=1 (< 1e-4), with the
+   kernel's time (CUDA events), the plain version's time, the bound on
+   this card, the share of the bound reached and the bytes per second;
 4. main path: solve_fictdom_structured(1024, 1, fitted="full",
    precond="block_jacobi") in float64 at CG tol 1e-11, with K1's launch
-   count read around it; then torch.profiler over 60 CG iterations of
-   the same system (device time by op, device busy share);
+   count read around it; then the assembly phase at the same size split
+   into its parts, and torch.profiler over 60 CG iterations of the same
+   system (device time by op, device busy share);
 5. checks: the H1 order between 512^2 and 1024^2, and the 32^2 k=1 gate
    of the JAX package on the CPU;
-6. k=2: the 256^2 solve (the d=22 instantiation on the solve path).
+6. k=2: the 256^2 solve (the d=22 instantiation on the solve path), with
+   K1's launch count read around it.
 
 Any failed check raises, so the script exits non-zero and prints no
 result. Without a CUDA device it exits non-zero before any phase. The
-second-to-last line is the kernels' JSON record, the last line
+second-to-last line is the kernels' JSON record (K1 at k=1 with its
+main-path launches, and at k=2 with the 256^2 solve's), the last line
 {"ok": true, "device": {...}}.
 """
 
@@ -115,6 +120,62 @@ def ptxas_summary(log: str):
         if m and key in out:
             out[key][0] = int(m.group(1))
     return out
+
+
+def assembly_split(N: int, k: int, device: str = "cuda") -> None:
+    """The assembly phase of the N^2 level split into its parts, called in
+    turn as cut/fictdom_structured.py:_assemble_level_cl runs them, with a
+    device synchronize after each (host clock)."""
+    from proton_tpu_torch.config import synchronize
+    from proton_tpu_torch.core.geometry import cell_geometry
+    from proton_tpu_torch.core.ops import HHODegreeInfo, cell_rhs
+    from proton_tpu_torch.cut import fictdom_structured as fs
+    from proton_tpu_torch.cut import methods as cut_methods
+    from proton_tpu_torch.cut.classify import LOC_NEG
+    from proton_tpu_torch.methods import cells_last
+    from proton_tpu_torch.methods import fused_assembly as fa
+
+    device = torch.device(device)
+    hdi, problem, eta = HHODegreeInfo(k + 1, k), fs.default_problem(), \
+        fs.nitsche_eta(k)
+    mesh, _, _, cell_loc, batch, _ = fs._classify(N, problem, 4,
+                                                  device=device)
+    synchronize(device)
+    parts = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        synchronize(device)
+        parts[name] = time.perf_counter() - t0
+        return out
+
+    def cut_operators():
+        _, data = cut_methods.cut_hho_laplacian(batch, problem.ls, hdi,
+                                                LOC_NEG, eta=eta)
+        return data + cut_methods.cut_stabilization(batch, hdi, LOC_NEG)
+
+    def rhs():
+        f_std = cell_rhs(mesh, geom, hdi.cell_degree, problem.rhs_fun)
+        f = torch.where((cell_loc == LOC_NEG)[:, None], f_std,
+                        torch.zeros_like(f_std))
+        f[batch.ids] = cut_methods.cut_rhs(batch, hdi.cell_degree,
+                                           problem.rhs_fun, problem.ls,
+                                           problem.sol_fun, LOC_NEG, eta=eta)
+        return f.T
+
+    geom = timed("cell_geometry_s", lambda: cell_geometry(mesh))
+    inputs = timed("pack_inputs_s", lambda: fa.pack_inputs(mesh, geom))
+    lc = timed("k1_s", lambda: fa.fused_local_operator(
+        *inputs, hdi.cell_degree, hdi.face_degree))
+    lc_cut = timed("cut_operators_s", cut_operators)
+    d = lc_cut.shape[1]
+    timed("set_columns_s", lambda: cells_last.set_columns(
+        lc, batch.ids, lc_cut.permute(1, 2, 0).reshape(d * d, -1)))
+    timed("rhs_s", rhs)
+    line("assembly", N=N, k=k, cut_cells=len(batch.ids),
+         total_s=sum(parts.values()), **parts)
+    return lc
 
 
 def profile_cg(N: int, k: int, iterations: int) -> None:
@@ -220,20 +281,29 @@ def main() -> int:
     line("build", source="proton_tpu_torch/csrc/fused_assembly.cu",
          seconds=round(time.perf_counter() - t0, 3),
          nvcc_seconds=round(build.seconds, 3))
-    for (dt, cd, fd), (reg, stack, st, ld) in sorted(
-            ptxas_summary(build.log).items()):
+    ptxas = ptxas_summary(build.log)
+    for (dtype, cd, fd), (tile, warps, smem) in fa.LAUNCH_GEOMETRY.items():
+        dt = "f64" if dtype == torch.float64 else "f32"
+        check((dt, cd, fd) in ptxas,
+              f"ptxas reported nothing for the instantiation {dt}<{cd},{fd}>")
+        reg, stack, st, ld = ptxas[(dt, cd, fd)]
         line("ptxas", kernel=f"{dt}<{cd},{fd}>", registers=reg,
-             stack_bytes=stack, spill_stores=st, spill_loads=ld)
+             stack_bytes=stack, spill_stores=st, spill_loads=ld,
+             tile_cells=tile, warps=warps, dynamic_smem_bytes=smem,
+             blocks_per_sm=fa.blocks_per_sm(cd, fd, dtype))
 
     # 3. kernels against their plain version at the flagship mesh
     mesh = make_poly_mesh(Nx=1024, Ny=1024, device="cuda")
     inputs = fa.pack_inputs(mesh, cell_geometry(mesh))
     C = mesh.num_cells
     del mesh
-    main_row = None
-    for k, dtype, tol in ((0, torch.float64, 1e-11), (1, torch.float64, 1e-11),
-                          (2, torch.float64, 1e-11), (1, torch.float32, 1e-4)):
-        cd, fd = k + 1, k
+    rows = {}
+    for cd, fd, dtype, tol in ((1, 0, torch.float64, 1e-11),
+                               (2, 1, torch.float64, 1e-11),
+                               (3, 2, torch.float64, 1e-11),
+                               (1, 1, torch.float64, 1e-11),
+                               (2, 1, torch.float32, 1e-4)):
+        k = fd
         x = tuple(a.to(dtype) for a in inputs)
         out = fa.fused_local_operator(*x, cd, fd)
         torch.cuda.synchronize()
@@ -246,20 +316,22 @@ def main() -> int:
                            3)
         d = (cd + 1) * (cd + 2) // 2 + 4 * (fd + 1)
         item = torch.finfo(dtype).bits // 8
-        bytes_ms = (40 + d * d) * item * C / bw * 1e3
+        nbytes = (40 + d * d) * item * C
+        bytes_ms = nbytes / bw * 1e3
         flop_ms = k1_flops_per_cell(cd, fd) * C / (
             f64_peak if dtype == torch.float64 else f32_peak) * 1e3
         bound_ms = max(bytes_ms, flop_ms)
         bound_by = "bytes" if bytes_ms >= flop_ms else "operations"
-        line("kernel", name="fused_local_operator", k=k,
-             dtype=str(dtype).split(".")[1], cells=C, max_rel_err=rel,
-             max_abs_err=max_abs, tol=tol, ms=ms, plain_ms=plain_ms,
-             bound_ms=bound_ms, bound_by=bound_by, bytes_ms=bytes_ms,
-             flop_ms=flop_ms)
-        check(rel < tol, f"K1 k={k} {dtype}: rel err {rel} >= {tol}")
-        if k == 1 and dtype == torch.float64:
-            main_row = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
-                            bound_ms=bound_ms, bound_by=bound_by)
+        line("kernel", name="fused_local_operator", k=k, cell_degree=cd,
+             face_degree=fd, dtype=str(dtype).split(".")[1], cells=C,
+             max_rel_err=rel, max_abs_err=max_abs, tol=tol, ms=ms,
+             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+             bytes_ms=bytes_ms, flop_ms=flop_ms, bound_share=bound_ms / ms,
+             gb_per_s=nbytes / ms / 1e6)
+        check(rel < tol, f"K1 <{cd},{fd}> {dtype}: rel err {rel} >= {tol}")
+        rows[(cd, fd, dtype)] = dict(max_abs_err=max_abs, ms=ms,
+                                     plain_ms=plain_ms, bound_ms=bound_ms,
+                                     bound_by=bound_by)
         del x
     del inputs
     torch.cuda.empty_cache()
@@ -295,7 +367,11 @@ def main() -> int:
     line("main_path", kernel="fused_local_operator", launches=launches)
     check(launches > 0, "the 1024^2 solve did not launch K1")
 
-    # 4b. where a CG iteration's time goes at the main path's shape
+    # 4b. the assembly phase at the main path's shape, split into its parts
+    assembly_split(1024, 1)
+    torch.cuda.empty_cache()
+
+    # 4c. where a CG iteration's time goes at the main path's shape
     profile_cg(1024, 1, iterations=60)
 
     # 5. checks: H1 order 512 -> 1024, and the JAX CPU gate at 32^2
@@ -309,16 +385,23 @@ def main() -> int:
     check(abs(r32.iterations - GATE_32[0]) <= 2, "32^2 iterations")
     check(math.isclose(r32.h1_error, GATE_32[1], rel_tol=1e-6), "32^2 H1")
 
-    # 6. k=2 on the solve path
+    # 6. k=2 on the solve path, with its own launch count
+    fa.fused_local_operator.launches = 0
     solve(256, 2, 1e-10)
+    launches_k2 = fa.fused_local_operator.launches
+    line("k2_path", kernel="fused_local_operator", launches=launches_k2)
+    check(launches_k2 > 0, "the 256^2 k=2 solve did not launch K1")
 
     line("total", seconds=round(time.perf_counter() - t_start, 3))
     print(smi, flush=True)
-    print(json.dumps({"kernels": [dict(
-        name="fused_local_operator", route="cuda",
-        source="proton_tpu_torch/csrc/fused_assembly.cu",
-        replaces="proton_tpu/methods/pallas_assembly.py:315",
-        launches=launches, library_ms=None, **main_row)]}), flush=True)
+    record = dict(route="cuda", source="proton_tpu_torch/csrc/fused_assembly.cu",
+                  replaces="proton_tpu/methods/pallas_assembly.py:315",
+                  library_ms=None)
+    print(json.dumps({"kernels": [
+        dict(name="fused_local_operator", launches=launches, **record,
+             **rows[(2, 1, torch.float64)]),
+        dict(name="fused_local_operator_k2", launches=launches_k2, **record,
+             **rows[(3, 2, torch.float64)])]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}), flush=True)
     return 0

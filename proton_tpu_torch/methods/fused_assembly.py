@@ -35,6 +35,21 @@ from ..core.quadrature import gauss_legendre
 
 _KERNEL_SOURCE = "fused_assembly"
 
+# Launch geometry of each compiled instantiation, (dtype, cell degree, face
+# degree) -> (cells per tile, warps per block, dynamic shared-memory bytes).
+# The launcher checks each value against its compile-time constants and
+# refuses a launch that differs (csrc/fused_assembly.cu, code -3).
+LAUNCH_GEOMETRY = {
+    (torch.float64, 1, 0): (32, 4, 18944),
+    (torch.float64, 2, 1): (32, 5, 48896),
+    (torch.float64, 3, 2): (32, 8, 113152),
+    (torch.float64, 1, 1): (32, 5, 38912),
+    (torch.float32, 1, 0): (32, 4, 9472),
+    (torch.float32, 2, 1): (32, 5, 24448),
+    (torch.float32, 3, 2): (32, 8, 56576),
+    (torch.float32, 1, 1): (32, 5, 19456),
+}
+
 
 def pack_inputs(mesh, geom):
     """Mesh/geometry in the kernel's cells-last layout (JAX :354):
@@ -60,6 +75,18 @@ def _sizes(cell_degree: int, face_degree: int):
     cbs = bases.cell_basis_size(cell_degree)
     fbs = bases.face_basis_size(face_degree)
     return rbs, cbs, fbs, cbs + 4 * fbs
+
+
+def shared_rows(cell_degree: int, face_degree: int) -> int:
+    """Rows of one block's shared memory, one value per cell of the tile
+    each: the 40 packed inputs, the cell moments (degree <= 2 recdeg - 2),
+    K's packed lower triangle, gr [d, nr], and per face the packed factor
+    of the face mass and the solved trace."""
+    rbs, cbs, fbs, d = _sizes(cell_degree, face_degree)
+    recdeg, nr = face_degree + 1, rbs - 1
+    tri = lambda n: n * (n + 1) // 2
+    return (40 + tri(2 * recdeg - 1) + tri(nr) + nr * d + 4 * tri(fbs) +
+            4 * fbs * cbs)
 
 
 def fitted_local_operator_plain(corners, bar, diam, meas, normals, fgeo,
@@ -145,15 +172,29 @@ def _library() -> ctypes.CDLL:
     lib.fused_assembly_launch.argtypes = (
         [ctypes.c_int] * 3 + [vp] * 7 +
         [ctypes.c_longlong, vp, vp, ctypes.c_int, vp, vp, ctypes.c_int, vp,
-         vp, ctypes.c_int, vp])
+         vp, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+         vp])
     lib.fused_assembly_launch.restype = ctypes.c_int
+    lib.fused_assembly_occupancy.argtypes = [ctypes.c_int] * 3 + [vp]
+    lib.fused_assembly_occupancy.restype = ctypes.c_int
     lib.fused_assembly_error_string.argtypes = [ctypes.c_int]
     lib.fused_assembly_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _launch(inputs, out, cell_degree: int, face_degree: int) -> None:
+def _check(lib, code: int, what: str) -> None:
+    if code != 0:
+        raise RuntimeError(f"fused_assembly {what} failed: " +
+                           lib.fused_assembly_error_string(code).decode())
+
+
+def _launch(inputs, out, cell_degree: int, face_degree: int,
+            geometry=None) -> None:
+    """Launch the kernel on ``out``'s stream at ``geometry`` (cells per
+    tile, warps, shared-memory bytes; LAUNCH_GEOMETRY's row by default)."""
     lib = _library()
+    if geometry is None:
+        geometry = LAUNCH_GEOMETRY[(out.dtype, cell_degree, face_degree)]
     recdeg = face_degree + 1
     gx, gw = (np.ascontiguousarray(a, np.float64)
               for a in gauss_legendre(2 * recdeg))
@@ -167,10 +208,19 @@ def _launch(inputs, out, cell_degree: int, face_degree: int) -> None:
         *(a.data_ptr() for a in inputs), out.data_ptr(), out.shape[1],
         gx.ctypes.data, gw.ctypes.data, len(gx), fx.ctypes.data,
         fw.ctypes.data, len(fx), px.ctypes.data, py.ctypes.data, len(px),
-        stream)
-    if code != 0:
-        raise RuntimeError("fused_assembly kernel launch failed: " +
-                           lib.fused_assembly_error_string(code).decode())
+        *geometry, stream)
+    _check(lib, code, "kernel launch")
+
+
+def blocks_per_sm(cell_degree: int, face_degree: int, dtype) -> int:
+    """Resident blocks per SM of one instantiation at its launch geometry
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor, on the current card)."""
+    lib = _library()
+    n = ctypes.c_int(0)
+    _check(lib, lib.fused_assembly_occupancy(
+        int(dtype == torch.float64), cell_degree, face_degree,
+        ctypes.addressof(n)), "occupancy query")
+    return n.value
 
 
 def fused_local_operator(corners, bar, diam, meas, normals, fgeo,

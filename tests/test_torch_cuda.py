@@ -55,3 +55,54 @@ def test_fused_assembly_kernel_rejects_bad_layout():
     inp[1] = inp[1].T.contiguous().T
     with pytest.raises(ValueError, match="contiguous"):
         fa.fused_local_operator(*inp, 2, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-11),
+                                       (torch.float32, 1e-4)])
+@pytest.mark.parametrize("cd,fd", [(1, 0), (2, 1), (3, 2), (1, 1)])
+@pytest.mark.parametrize("nx,ny", [(1, 1), (5, 3)])
+def test_fused_assembly_kernel_partial_tile(nx, ny, cd, fd, dtype, tol):
+    """K1 on meshes of fewer cells than one tile (C = 1 and C = 15)
+    against its plain version, max|diff| / max|plain| < tol."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    mesh = make_poly_mesh(Nx=nx, Ny=ny, device="cuda")
+    inp = tuple(a.to(dtype) for a in fa.pack_inputs(mesh, cell_geometry(mesh)))
+    out = fa.fused_local_operator(*inp, cd, fd)
+    torch.cuda.synchronize()
+    ref = fa.fitted_local_operator_plain(*inp, cd, fd)
+    assert out.shape == ref.shape == (ref.shape[0], nx * ny)
+    assert float((out - ref).abs().max() / ref.abs().max()) < tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cd,fd", [(2, 1), (3, 2)])
+def test_fused_assembly_kernel_is_deterministic(cd, fd):
+    """Two launches on the same inputs give bitwise equal results."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    mesh = _jittered_cuda_mesh(37, 5)
+    inp = fa.pack_inputs(mesh, cell_geometry(mesh))
+    first = fa.fused_local_operator(*inp, cd, fd)
+    second = fa.fused_local_operator(*inp, cd, fd)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+def test_fused_assembly_kernel_rejects_other_geometry():
+    """A launch geometry that differs from the compiled one raises and
+    leaves the output untouched."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    mesh = make_poly_mesh(Nx=8, Ny=8, device="cuda")
+    inp = fa.pack_inputs(mesh, cell_geometry(mesh))
+    tile, warps, smem = fa.LAUNCH_GEOMETRY[(torch.float64, 2, 1)]
+    out = torch.zeros((14 * 14, 64), dtype=torch.float64, device="cuda")
+    for geometry in ((tile // 2, warps, smem // 2), (tile, warps + 1, smem),
+                     (tile, warps, smem + 8)):
+        with pytest.raises(RuntimeError, match="geometry"):
+            fa._launch(inp, out, 2, 1, geometry)
+    torch.cuda.synchronize()
+    assert not out.any()

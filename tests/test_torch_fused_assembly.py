@@ -4,6 +4,7 @@ the Pallas kernel in interpret mode. The CUDA kernel is held against the
 plain version on the card in tests/test_torch_cuda.py."""
 
 import dataclasses
+import re
 
 import numpy as np
 import jax.numpy as jnp
@@ -14,7 +15,7 @@ import proton_tpu as pt
 from proton_tpu.core.geometry import cell_geometry as jcell_geometry
 from proton_tpu.core.ops import HHODegreeInfo as JHDI
 from proton_tpu.methods import pallas_assembly, poisson
-from proton_tpu_torch import convert
+from proton_tpu_torch import convert, native
 from proton_tpu_torch.core.geometry import cell_geometry
 from proton_tpu_torch.core.mesh import make_poly_mesh
 from proton_tpu_torch.core.ops import HHODegreeInfo
@@ -105,3 +106,41 @@ def test_cpu_tensors_take_the_plain_path():
     assert fa.fused_local_operator.launches == before
     torch.testing.assert_close(out, fa.fitted_local_operator_plain(*inp, 2, 1),
                                rtol=0, atol=0)
+
+
+def _compiled_constant(name: str, cd: int, fd: int) -> int:
+    """A per-degree-pair constant of csrc/fused_assembly.cu: the body of
+    ``constexpr int <name>(int cd, int fd)``, a chain c1 ? v1 : ... : vn."""
+    src = (native.CSRC / "fused_assembly.cu").read_text()
+    body = re.search(r"constexpr int " + name + r"\(int cd, int fd\) \{\s*"
+                     r"return ([^;]*);", src).group(1)
+    *branches, default = body.split(":")
+    for branch in branches:
+        cond, value = branch.split("?")
+        if eval(cond.replace("&&", " and "), {"cd": cd, "fd": fd}):
+            return int(value)
+    return int(default)
+
+
+def test_launch_geometry_table():
+    """Every instantiation's launch geometry matches the kernel source
+    (tile = kTile, warps = warps_for), its shared memory is the kernel's
+    rows x tile x bytes and fits in a block's 227 KB, and the blocks per SM
+    the registers are cut for (min_blocks_for) fit in the SM's 228 KB of
+    shared memory (1 KB of it reserved per block)."""
+    pairs = {(1, 0), (2, 1), (3, 2), (1, 1)}
+    assert set(fa.LAUNCH_GEOMETRY) == {(dt, cd, fd) for dt in
+                                       (torch.float64, torch.float32)
+                                       for cd, fd in pairs}
+    src = (native.CSRC / "fused_assembly.cu").read_text()
+    k_tile = int(re.search(r"constexpr int kTile = (\d+);", src).group(1))
+    for (dtype, cd, fd), (tile, warps, smem) in fa.LAUNCH_GEOMETRY.items():
+        item = torch.finfo(dtype).bits // 8
+        assert tile == k_tile == 32
+        assert warps == _compiled_constant("warps_for", cd, fd)
+        assert smem == fa.shared_rows(cd, fd) * tile * item
+        assert smem <= 232448
+        assert (smem + 1024) * _compiled_constant("min_blocks_for", cd, fd) <= 233472
+    # k=1: inputs 40, moments 6, K 15, gr 5 x 14, face factors 4 x 3,
+    # solved traces 4 x 2 x 6
+    assert fa.shared_rows(2, 1) == 40 + 6 + 15 + 70 + 12 + 48
