@@ -1,7 +1,8 @@
 """Build the port's state from the JAX package's pytrees, given as numpy
 arrays: any object with the field names of proton_tpu's ``Mesh``,
-``CellGeom``, ``CutData``, ``CutCellBatch``, ``CondensedCL`` or
-``GridVecCL`` (``np.asarray`` is applied to each field). The tests use
+``CellGeom``, ``CutData``, ``CutCellBatch``, ``CondensedCL``,
+``UniformCondCL`` or ``GridVecCL`` (``np.asarray`` is applied to each
+field), and the per-level data of its multigrid. The tests use
 these so that each stage of the two packages runs from identical inputs.
 This module imports neither JAX nor proton_tpu."""
 
@@ -14,7 +15,7 @@ from .core.geometry import CellGeom
 from .core.mesh import Mesh
 from .cut.classify import CutData
 from .cut.methods import CutCellBatch
-from .methods.cells_last import CondensedCL, GridVecCL
+from .methods.cells_last import CondensedCL, GridVecCL, UniformCondCL
 
 
 def tensor(a, device) -> torch.Tensor:
@@ -60,3 +61,23 @@ def condensed_cl(c, device) -> CondensedCL:
 
 def grid_vec_cl(x, device) -> GridVecCL:
     return _fields(GridVecCL, x, device)
+
+
+def uniform_cond_cl(c, device) -> UniformCondCL:
+    return _fields(UniformCondCL, c, device)
+
+
+def mg_levels(levels, device) -> dict:
+    """Keyword arguments of solvers.multigrid.build_multigrid from the
+    JAX package's per-level data, ``levels`` = {n: (S, S_u, irr_ids,
+    cut_ids)} as numpy: S is the full [nfd*nfd, C] Schur array, or the
+    deviation dS [nfd*nfd, Ci] of a lean level; S_u and irr_ids are None
+    on a level without the uniform split; cut_ids are the patch
+    smoother's cells."""
+    return dict(
+        S_per_level={n: tensor(lev[0], device) for n, lev in levels.items()},
+        uniform_per_level={
+            n: (tensor(lev[1], device), np.asarray(lev[2], dtype=np.int64))
+            for n, lev in levels.items() if lev[1] is not None},
+        cut_ids_per_level={n: np.asarray(lev[3], dtype=np.int64)
+                           for n, lev in levels.items()})

@@ -166,3 +166,12 @@ def make_poly_mesh(params: Optional[MeshInitParams] = None, *, device=None,
     basic_mesh.hpp:321-403); geometry identical to the quad mesh."""
     params = params or MeshInitParams(**kw)
     return _structured_topology(params, "poly", resolve_device(device), dtype)
+
+
+def unit_cell_mesh(h: float, *, device=None) -> Mesh:
+    """The one-cell quad mesh [0, h]^2 in float64: the uniform cell of the
+    generated mesh of spacing ``h``. The unit-cell operator, the transfer
+    matrices and their checks all take it from here, so they see one set
+    of coordinates."""
+    return make_quad_mesh(Nx=1, Ny=1, min_x=0.0, max_x=h, min_y=0.0, max_y=h,
+                          device=device, dtype=torch.float64)

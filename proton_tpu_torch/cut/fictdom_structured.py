@@ -1,29 +1,36 @@
 """Fictitious-domain cutHHO Poisson on the generated N x N mesh, solved
 as a cells-last condensed face-grid system (JAX counterpart:
-proton_tpu/cut/fictdom_structured.py, the fitted="full" path with the
-block-Jacobi or Jacobi preconditioned CG; reference run_cuthho_fictdom,
+proton_tpu/cut/fictdom_structured.py; reference run_cuthho_fictdom,
 cuthho_square.cpp:806-1080).
 
 The pipeline:
 
 1. band classification of the circle level set (cut/classify.py);
-2. fitted local operators of every cell from kernel K1
-   (methods/fused_assembly.py), with the Nitsche cut-cell operators
-   (cut/methods.py) overwriting the cut class;
+2. the local operators. ``fitted="lean"`` (the default): one unit-cell
+   operator from kernel K1 (methods/fused_assembly.py) stands for every
+   uncut, undisplaced cell, and K1 assembles only the O(N) cells whose
+   nodes the bad-cut displacement moved. ``fitted="full"``: K1 assembles
+   every cell. Either way the Nitsche cut-cell operators (cut/methods.py)
+   overwrite the cut class;
 3. static condensation onto the faces (methods/cells_last.condense_cl);
-4. Dirichlet fold, then PCG on the H/V face grids with the per-face
-   block-Jacobi (or Jacobi) preconditioner;
+   in the lean form only the irregular columns are condensed and stored;
+4. Dirichlet fold, then PCG on the H/V face grids, preconditioned by the
+   reconstruction-transfer multigrid V-cycle (solvers/multigrid.py, the
+   default), per-face block-Jacobi, or Jacobi;
 5. cell recovery and the chunked H1 error.
 
-Not ported here: the multigrid V-cycle, the lean/uniform split systems,
-the mixed-precision cut splice, the setup caches and the chunked solve
-(ROADMAP.md, "Modules to port").
+Not ported: the dense broadcast ``fitted="uniform"``, the Galerkin coarse
+hierarchy and the damped smoothers, the precision workarounds (mixed,
+mg_f32, cg_f64, cg_segment), the refuted multigrid experiments and every
+disk cache (ROADMAP.md, "Modules to port" and "Not ported").
 """
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 import time
-from typing import Callable, NamedTuple, Optional
+from typing import Callable, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -31,10 +38,10 @@ import torch
 from ..config import DEFAULT_DTYPE, resolve_device, synchronize
 from ..core import bases, quadrature
 from ..core.geometry import cell_geometry, cell_points
-from ..core.mesh import make_poly_mesh
+from ..core.mesh import make_poly_mesh, unit_cell_mesh
 from ..core.ops import HHODegreeInfo, cell_rhs
 from ..methods import assembly, cells_last, fused_assembly, structured
-from ..solvers import cg
+from ..solvers import cg, multigrid
 from . import methods as cut_methods
 from .classify import LOC_CUT, LOC_NEG, CutData, cut_preprocess_band
 from .levelset import LevelSet, circle_level_set
@@ -72,14 +79,19 @@ def default_problem(radius: float = 0.35, center=(0.5, 0.5)) -> FictdomProblem:
 
 
 class LevelData(NamedTuple):
-    """Classified + assembled data of one mesh level."""
+    """Classified + assembled data of one mesh level. ``cond`` is a
+    CondensedCL (fitted="full") or a UniformCondCL (fitted="lean", with
+    ``S_u`` the unit-cell Schur block and ``irr_ids`` the sorted ids of
+    the cut or displaced cells)."""
 
     mesh: object
     cutdata: CutData
     cut_ids: np.ndarray
-    cond: cells_last.CondensedCL
+    cond: object
     batch: cut_methods.CutCellBatch
     cell_loc: torch.Tensor
+    S_u: Optional[torch.Tensor] = None
+    irr_ids: Optional[np.ndarray] = None
 
 
 class StructuredFictdomResult(NamedTuple):
@@ -114,64 +126,193 @@ def _classify(N: int, problem: FictdomProblem, int_refsteps: int, *, device,
     return mesh, cutdata, cut_ids, cutdata.cell_loc, batch, dist_ids
 
 
+def _cut_operators_cl(batch, hdi: HHODegreeInfo, problem: FictdomProblem,
+                      eta: float, side: int):
+    """lc [d*d, Cc] of the cut class: the Nitsche cut operators plus the
+    cut stabilization."""
+    _, data_cut = cut_methods.cut_hho_laplacian(batch, problem.ls, hdi, side,
+                                                eta=eta)
+    lc_cut = data_cut + cut_methods.cut_stabilization(batch, hdi, side)
+    d = lc_cut.shape[1]
+    return lc_cut.permute(1, 2, 0).reshape(d * d, -1)
+
+
+def _loads_cl(mesh, geom, cell_loc, hdi: HHODegreeInfo,
+              problem: FictdomProblem, with_rhs: bool, side: int):
+    """fT [cbs, C]: the fitted load vectors on the cells of ``side``
+    (zeros without a right-hand side; the cut columns are set by the
+    caller)."""
+    if not with_rhs:
+        return mesh.points.new_zeros(
+            (bases.cell_basis_size(hdi.cell_degree), mesh.num_cells))
+    f_std = cell_rhs(mesh, geom, hdi.cell_degree, problem.rhs_fun)
+    return torch.where((cell_loc == side)[:, None], f_std,
+                       torch.zeros_like(f_std)).T.contiguous()
+
+
+def _cut_loads_cl(batch, hdi: HHODegreeInfo, problem: FictdomProblem,
+                  eta: float, with_rhs: bool, side: int):
+    """[cbs, Cc] loads of the cut class."""
+    if not with_rhs:
+        return batch.pts.new_zeros(
+            (bases.cell_basis_size(hdi.cell_degree), len(batch.ids)))
+    return cut_methods.cut_rhs(batch, hdi.cell_degree, problem.rhs_fun,
+                               problem.ls, problem.sol_fun, side, eta=eta).T
+
+
 def _assemble_level_cl(mesh, geom, cell_loc, batch, hdi: HHODegreeInfo,
                        problem: FictdomProblem, eta: float,
-                       side: int = LOC_NEG):
+                       side: int = LOC_NEG, with_rhs: bool = True):
     """(lc_cl [d*d, C], f_cl [cbs, C]): fitted operators of every cell
     from K1 (the uncut fallback, cuthho_square.cpp:316-317), the Nitsche
     cut operators overwriting the cut class. The JAX function condenses
     before returning; here build_level condenses, to time it apart."""
     lc_cl = fused_assembly.fitted_local_operator(mesh, geom, hdi,
                                                  cells_last=True)
-    _, data_cut = cut_methods.cut_hho_laplacian(batch, problem.ls, hdi, side,
-                                                eta=eta)
-    lc_cut = data_cut + cut_methods.cut_stabilization(batch, hdi, side)
-    d = lc_cut.shape[1]
     cells_last.set_columns(lc_cl, batch.ids,
-                           lc_cut.permute(1, 2, 0).reshape(d * d, -1))
+                           _cut_operators_cl(batch, hdi, problem, eta, side))
+    f_cl = _loads_cl(mesh, geom, cell_loc, hdi, problem, with_rhs, side)
+    f_cl[:, batch.ids] = _cut_loads_cl(batch, hdi, problem, eta, with_rhs,
+                                       side)
+    return lc_cl, f_cl
 
-    f_std = cell_rhs(mesh, geom, hdi.cell_degree, problem.rhs_fun)
-    f = torch.where((cell_loc == side)[:, None], f_std,
-                    torch.zeros_like(f_std))
-    f[batch.ids] = cut_methods.cut_rhs(batch, hdi.cell_degree,
-                                       problem.rhs_fun, problem.ls,
-                                       problem.sol_fun, side, eta=eta)
-    return lc_cl, f.T
+
+def _gather_cells(mesh, geom, ids):
+    """Sub-batch of the cells ``ids``: the mesh with gathered cell arrays
+    (points kept whole) and the gathered geometry."""
+    sub = dataclasses.replace(mesh, cell_ptids=mesh.cell_ptids[ids],
+                              cell_npts=mesh.cell_npts[ids],
+                              cell_faces=mesh.cell_faces[ids])
+    return sub, type(geom)(*(a[ids] for a in geom))
+
+
+def _unit_cell_core(hdi: HHODegreeInfo, h: float, device):
+    """(S_u [nfd, nfd], X_u = ATT^-1 ATF [cbs, nfd], ATT_u, ATF_u) of the
+    square cell of side ``h``, float64: K1 on a one-cell mesh, then the
+    condensation."""
+    cbs = bases.cell_basis_size(hdi.cell_degree)
+    mesh1 = unit_cell_mesh(h, device=device)
+    lc = fused_assembly.fitted_local_operator(mesh1, cell_geometry(mesh1),
+                                              hdi)[0]
+    ATT, ATF = lc[:cbs, :cbs], lc[:cbs, cbs:]
+    X = torch.cholesky_solve(ATF, torch.linalg.cholesky(ATT))
+    return lc[cbs:, cbs:] - lc[cbs:, :cbs] @ X, X, ATT, ATF
+
+
+@functools.lru_cache(maxsize=64)
+def _unit_cell_host(hdi: HHODegreeInfo, h: float, device: torch.device):
+    """The condensed pieces of the uniform cell, computed once per
+    (hdi, h, device) in float64 and kept on the device. The generated
+    mesh's cells are congruent squares and the scaled-monomial bases are
+    translation-invariant, so every uncut, undisplaced cell shares them.
+    The same tensors feed the constant stencil and the dS = S - S_u
+    splice, so the two agree exactly. Callers must not write to them."""
+    return _unit_cell_core(hdi, h, device)
+
+
+def _set_cells_lean(ucond, S_u_cl, irr_ids, ids, sub):
+    """Overwrite the cells ``ids`` of a lean uniform system, in place,
+    with a small condensed batch (CondensedCL columns). ``ids`` is a
+    sorted subset of the sorted ``irr_ids`` (host arrays)."""
+    dev = ucond.dS.device
+    pos = torch.as_tensor(np.searchsorted(irr_ids, ids), device=dev)
+    cells_last.set_columns(ucond.dS, pos, sub.S - S_u_cl)
+    cells_last.set_columns(ucond.bF, torch.as_tensor(ids, device=dev),
+                           sub.bF)
+    cells_last.set_columns(ucond.X_i, pos, sub.X)
+    cells_last.set_columns(ucond.y_i, pos, sub.y)
+    return ucond
+
+
+def _assemble_level_uniform_lean(mesh, geom, cell_loc, batch, dist_ids,
+                                 irr_ids, cut_ids, unit,
+                                 hdi: HHODegreeInfo, problem: FictdomProblem,
+                                 eta: float, with_rhs: bool,
+                                 side: int = LOC_NEG):
+    """Lean-uniform fictdom assembly: the unit-cell operator stands for
+    every regular cell, and exact per-cell assembly is spliced over (a)
+    the ``dist_ids`` cells whose nodes the bad-cut displacement moved
+    (K1 on the gathered batch) and (b) the cut class (Nitsche kernels).
+    ``irr_ids`` = union(dist_ids, cut_ids), sorted; all three are host
+    arrays. No O(N^2) operator plane is formed."""
+    dtype = mesh.points.dtype
+    cbs = bases.cell_basis_size(hdi.cell_degree)
+    S_u, X_u = (a.to(dtype) for a in unit[:2])
+    nfd = S_u.shape[0]
+    Ci = len(irr_ids)
+    S_u_cl = S_u.reshape(nfd * nfd, 1)
+
+    fT = _loads_cl(mesh, geom, cell_loc, hdi, problem, with_rhs, side)
+    # every irregular column (dist + cut) is overwritten below
+    ucond = cells_last.UniformCondCL(
+        fT.new_zeros((nfd * nfd, Ci)), -(X_u.T @ fT), fT,
+        fT.new_zeros((cbs * nfd, Ci)), fT.new_zeros((cbs, Ci)))
+
+    if len(dist_ids) > 0:
+        dist_d = torch.as_tensor(dist_ids, device=fT.device)
+        sub, gsub = _gather_cells(mesh, geom, dist_d)
+        lc_d = fused_assembly.fitted_local_operator(sub, gsub, hdi,
+                                                    cells_last=True)
+        _set_cells_lean(ucond, S_u_cl, irr_ids, dist_ids,
+                        cells_last.condense_cl(lc_d, fT[:, dist_d], cbs))
+
+    cut_cond = cells_last.condense_cl(
+        _cut_operators_cl(batch, hdi, problem, eta, side),
+        _cut_loads_cl(batch, hdi, problem, eta, with_rhs, side), cbs)
+    return _set_cells_lean(ucond, S_u_cl, irr_ids, cut_ids, cut_cond)
 
 
 def _check_fitted(fitted: str) -> None:
-    if fitted != "full":
+    if fitted == "uniform":
         raise NotImplementedError(
-            f"fitted={fitted!r}: the lean/uniform split systems come with "
-            "the multigrid slice (ROADMAP.md, Modules to port, remaining 2)")
+            "fitted='uniform' (the dense broadcast of the unit cell) is not "
+            "ported; fitted='lean' is the same system without the O(N^2) "
+            "planes (ROADMAP.md, Modules to port, item 4)")
+    if fitted not in ("lean", "full"):
+        raise ValueError(f"fitted={fitted!r}: expected 'lean' or 'full'")
 
 
 def _check_precond(precond: str) -> None:
-    if precond not in ("block_jacobi", "jacobi"):
-        raise NotImplementedError(
-            f"precond={precond!r}: the multigrid V-cycle comes with the "
-            "multigrid slice (ROADMAP.md, Modules to port, remaining 2)")
+    if precond not in ("mg", "block_jacobi", "jacobi"):
+        raise ValueError(f"precond={precond!r}: expected 'mg', "
+                         "'block_jacobi' or 'jacobi'")
 
 
 def build_level(N: int, hdi: HHODegreeInfo, problem: FictdomProblem,
                 eta: float, int_refsteps: int, *, device,
                 dtype=DEFAULT_DTYPE, fitted: str = "full",
+                with_rhs: bool = True,
                 timings: Optional[dict] = None) -> LevelData:
-    """Classify + assemble + condense one level (fitted="full": every
-    cell assembled by K1). Phase times go into ``timings``."""
+    """Classify + assemble + condense one level. ``fitted``: 'full'
+    assembles every cell with K1; 'lean' assembles only the O(N)
+    displaced and cut cells around the unit-cell operator (exact on the
+    generated mesh up to basis translation-invariance). ``with_rhs=False``
+    (the multigrid coarse levels) skips the load vectors. Phase times go
+    into ``timings``; the lean assembly condenses as it goes, so its time
+    is all in ``assembly_s``."""
     _check_fitted(fitted)
     device = resolve_device(device)
     timings = {} if timings is None else timings
     t0 = time.perf_counter()
-    mesh, cutdata, cut_ids, cell_loc, batch, _ = _classify(
+    mesh, cutdata, cut_ids, cell_loc, batch, dist_ids = _classify(
         N, problem, int_refsteps, device=device, dtype=dtype)
     synchronize(device)
     timings["classify_s"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
     geom = cell_geometry(mesh)
+    if fitted == "lean":
+        unit = _unit_cell_host(hdi, 1.0 / N, mesh.points.device)
+        irr_ids = np.union1d(dist_ids, cut_ids)
+        cond = _assemble_level_uniform_lean(
+            mesh, geom, cell_loc, batch, dist_ids, irr_ids, cut_ids, unit,
+            hdi, problem, eta, with_rhs)
+        synchronize(device)
+        timings["assembly_s"] = time.perf_counter() - t0
+        return LevelData(mesh, cutdata, cut_ids, cond, batch, cell_loc,
+                         unit[0].to(dtype), irr_ids)
     lc_cl, f_cl = _assemble_level_cl(mesh, geom, cell_loc, batch, hdi,
-                                     problem, eta)
+                                     problem, eta, with_rhs=with_rhs)
     del geom
     synchronize(device)
     timings["assembly_s"] = time.perf_counter() - t0
@@ -185,6 +326,61 @@ def build_level(N: int, hdi: HHODegreeInfo, problem: FictdomProblem,
     return LevelData(mesh, cutdata, cut_ids, cond, batch, cell_loc)
 
 
+def expand_ring(ids: np.ndarray, n: int, ring: int = 1) -> np.ndarray:
+    """Cell ids on the n x n grid grown by ``ring`` layers of neighbours
+    (the patch smoother's support: the cut cells plus the cells whose
+    faces see the Nitsche coupling)."""
+    ids = np.asarray(ids, dtype=np.int64)
+    if ring == 0 or len(ids) == 0:
+        return ids
+    jj, ii = ids // n, ids % n
+    out = []
+    for dj in range(-ring, ring + 1):
+        for di in range(-ring, ring + 1):
+            j2, i2 = jj + dj, ii + di
+            ok = (j2 >= 0) & (j2 < n) & (i2 >= 0) & (i2 < n)
+            out.append(j2[ok] * n + i2[ok])
+    return np.unique(np.concatenate(out))
+
+
+def build_coarse_levels(N: int, hdi: HHODegreeInfo, problem: FictdomProblem,
+                        eta: float, int_refsteps: int, *, device,
+                        dtype=DEFAULT_DTYPE, fitted: str = "lean",
+                        mg_coarsest: int = 8) -> Dict[int, LevelData]:
+    """{n: LevelData} of the rediscretized levels N/2, ..., mg_coarsest,
+    in the fine level's form and without right-hand sides (JAX
+    build_coarse_level, without its disk cache): the V-cycle needs only
+    (dS or S, S_u, irr_ids, cut_ids) of each."""
+    return {n: build_level(n, hdi, problem, eta, int_refsteps,
+                           device=device, dtype=dtype, fitted=fitted,
+                           with_rhs=False)
+            for n in multigrid._mg_sizes(N, mg_coarsest)[1:]}
+
+
+def level_multigrid(levels: Dict[int, LevelData], hdi: HHODegreeInfo, *,
+                    mg_coarsest: int = 8, n_smooth: int = 1,
+                    patch_ring: int = 1, patch_colors: int = 1,
+                    cheb_degree: int = 4, patch_sweeps: int = 1
+                    ) -> multigrid.Multigrid:
+    """The V-cycle over ``levels`` ({n: LevelData}, the finest included):
+    Chebyshev(cheb_degree) over block-Jacobi, then the interface-patch
+    smoother on the cut cells grown by ``patch_ring``."""
+    N = max(levels)
+    lean = {n: isinstance(lev.cond, cells_last.UniformCondCL)
+            for n, lev in levels.items()}
+    return multigrid.build_multigrid(
+        N, bases.face_basis_size(hdi.face_degree),
+        {n: lev.cond.dS if lean[n] else lev.cond.S
+         for n, lev in levels.items()},
+        hdi=hdi, coarsest=mg_coarsest, n_smooth=n_smooth,
+        cut_ids_per_level={n: expand_ring(lev.cut_ids, n, patch_ring)
+                           for n, lev in levels.items()},
+        cheb_degree=cheb_degree, patch_colors=patch_colors,
+        patch_sweeps=patch_sweeps,
+        uniform_per_level={n: (lev.S_u, lev.irr_ids)
+                           for n, lev in levels.items() if lean[n]})
+
+
 class FaceSystem(NamedTuple):
     """The face-grid system of one level, ready for CG."""
 
@@ -192,15 +388,17 @@ class FaceSystem(NamedTuple):
     gF_cl: torch.Tensor                  # [nfd, C] Dirichlet data, face slots
     rhs: cells_last.GridVecCL
     apply_S: Callable
-    precond: Optional[Callable]          # block-Jacobi; None with Jacobi
+    precond: Optional[Callable]          # block-Jacobi; None otherwise
     diag: Optional[cells_last.GridVecCL]  # the Jacobi diagonal
 
 
 def face_system(level: LevelData, N: int, hdi: HHODegreeInfo,
                 problem: FictdomProblem, precond: str, *,
                 device) -> FaceSystem:
-    """Dirichlet fold (JAX _solve_jit :1915-1917), condensed rhs and
-    operator (:1932-1942) and the preconditioner (:2025-2035)."""
+    """Dirichlet fold, condensed rhs and operator of the fine level, in
+    its lean or its full form, and the block-Jacobi preconditioner or the
+    Jacobi diagonal. With ``precond="mg"`` neither is built: the V-cycle
+    comes from level_multigrid."""
     _check_precond(precond)
     device = resolve_device(device)
     fbs = bases.face_basis_size(hdi.face_degree)
@@ -209,31 +407,111 @@ def face_system(level: LevelData, N: int, hdi: HHODegreeInfo,
     dofmap = assembly.build_dofmap_structured(N, hdi, device=device)
     fd = assembly.dirichlet_face_data(level.mesh, hdi, problem.sol_fun)
     gF_cl = assembly.local_dirichlet_data(dofmap, level.mesh, fd)[:, cbs:].T
-    S = level.cond.S
-    rhs = cells_last.structured_rhs_cl(sys_f, level.cond, gF_cl)
-    apply_S = cells_last.make_structured_operator_cl(sys_f, S)
+    cond = level.cond
+    if isinstance(cond, cells_last.UniformCondCL):
+        if precond == "jacobi":
+            raise ValueError("the lean system supports precond 'mg' and "
+                             "'block_jacobi' only")
+        S_u, irr = level.S_u, level.irr_ids
+        rhs = cells_last.uniform_rhs_cl(sys_f, cond, S_u, irr, gF_cl)
+        apply_S = cells_last.make_uniform_operator_cl(sys_f, S_u, irr,
+                                                      cond.dS)
+        bj = None
+        if precond == "block_jacobi":
+            hf, vf = cells_last.uniform_face_block_deltas(sys_f, cond.dS,
+                                                          irr)
+            bj = cells_last.make_uniform_block_jacobi_cl(
+                sys_f, *cells_last.uniform_block_jacobi_blocks(sys_f, S_u),
+                *cells_last.uniform_bj_from_deltas(sys_f, S_u, hf, vf,
+                                                   cond.dS.dtype))
+        return FaceSystem(sys_f, gF_cl, rhs, apply_S, bj, None)
+    rhs = cells_last.structured_rhs_cl(sys_f, cond, gF_cl)
+    apply_S = cells_last.make_structured_operator_cl(sys_f, cond.S)
     if precond == "block_jacobi":
-        return FaceSystem(sys_f, gF_cl, rhs, apply_S,
-                          cells_last.block_jacobi_preconditioner_cl(sys_f, S),
-                          None)
-    return FaceSystem(sys_f, gF_cl, rhs, apply_S, None,
-                      cells_last.structured_diagonal_cl(sys_f, S))
+        return FaceSystem(
+            sys_f, gF_cl, rhs, apply_S,
+            cells_last.block_jacobi_preconditioner_cl(sys_f, cond.S), None)
+    diag = cells_last.structured_diagonal_cl(sys_f, cond.S) \
+        if precond == "jacobi" else None
+    return FaceSystem(sys_f, gF_cl, rhs, apply_S, None, diag)
+
+
+def recover_local(fsys: FaceSystem, level: LevelData, hdi: HHODegreeInfo,
+                  x: cells_last.GridVecCL):
+    """Face solution -> per-cell local dofs [C, d], through the level's
+    lean or full back-substitution."""
+    if isinstance(level.cond, cells_last.UniformCondCL):
+        N = fsys.sys.Nx
+        unit = _unit_cell_host(hdi, 1.0 / N, x.H.device)
+        return cells_last.uniform_recover_cl(
+            fsys.sys, level.cond, unit[1], unit[2], level.irr_ids, x,
+            fsys.gF_cl)
+    return cells_last.solve_recover_cl(fsys.sys, level.cond, x, fsys.gF_cl)
+
+
+# Options of the JAX solve that the port leaves out: name -> (the value
+# that is accepted, what the option is). The first four are TPU precision
+# workarounds and the next four are experiments the JAX package measured
+# as no gain (ROADMAP.md, "Not ported"); the last two are ROADMAP.md,
+# Modules to port, item 4.
+_NOT_PORTED = {
+    "mixed": (False, "the mixed-precision cut splice"),
+    "mg_f32": (False, "the float32 V-cycle"),
+    "cg_f64": (False, "mixed-precision CG"),
+    "cg_segment": (0, "segmented CG"),
+    "mg_transfer": ("uniform", "a transfer other than the uniform "
+                    "reconstruction one"),
+    "mg_deflate": (0, "interface-band deflation"),
+    "cheb_ops": ("exact", "a Chebyshev operator pair other than exact"),
+    "mg_gamma": (1, "a W-style cycle"),
+    "mg_galerkin": (False, "the Galerkin coarse hierarchy"),
+    "mg_smoother": ("chebyshev", "a smoother other than Chebyshev"),
+}
+
+
+def _check_unported(options: dict) -> None:
+    """Raise NotImplementedError for an option of _NOT_PORTED set to
+    anything but its accepted value (or None), TypeError for an unknown
+    keyword."""
+    for name, value in options.items():
+        if name not in _NOT_PORTED:
+            raise TypeError("solve_fictdom_structured() got an unexpected "
+                            f"keyword argument {name!r}")
+        accepted, what = _NOT_PORTED[name]
+        if value is not None and value != accepted:
+            raise NotImplementedError(
+                f"{name}={value!r}: {what} is not ported (ROADMAP.md, "
+                "'Not ported' and Modules to port, item 4)")
 
 
 def solve_fictdom_structured(
         N: int, degree: int, problem: Optional[FictdomProblem] = None,
-        int_refsteps: int = 4, precond: str = "block_jacobi",
+        int_refsteps: int = 4, precond: str = "mg",
         cg_params: Optional[cg.CGParams] = None, compute_h1: bool = True,
-        fitted: str = "full", side: int = LOC_NEG, *, device=None,
-        dtype=DEFAULT_DTYPE) -> StructuredFictdomResult:
+        fitted: str = "lean", side: int = LOC_NEG, *, mg_coarsest: int = 8,
+        n_smooth: int = 1, patch_ring: int = 1, patch_colors: int = 1,
+        cheb_degree: int = 4, patch_sweeps: int = 1, device=None,
+        dtype=DEFAULT_DTYPE, **unported) -> StructuredFictdomResult:
     """End-to-end fictdom solve on the generated N x N mesh at HHO degree
-    ``degree`` (cell degree k+1, face degree k). ``precond``:
-    'block_jacobi' (per-face blocks) or 'jacobi' (the reference's PCG
-    preconditioner, solver_cg.hpp:63-144). Runs on CUDA unless
-    ``device="cpu"``; raises without a device when CUDA is absent."""
+    ``degree`` (cell degree k+1, face degree k).
+
+    ``precond``: 'mg' (the reconstruction-transfer V-cycle over meshes N,
+    N/2, ..., ``mg_coarsest``: ``n_smooth`` sweeps of
+    Chebyshev(``cheb_degree``) over block-Jacobi plus ``patch_sweeps`` of
+    the interface-patch smoother on the cut cells grown by ``patch_ring``
+    layers, in ``patch_colors`` colors), 'block_jacobi' (per-face blocks)
+    or 'jacobi' (the reference's PCG preconditioner,
+    solver_cg.hpp:63-144; fitted='full' only). ``fitted``: 'lean' or
+    'full' (build_level). Options of the JAX solve that are not ported
+    raise NotImplementedError (_check_unported).
+
+    Runs on CUDA unless ``device="cpu"``; raises without a device when
+    CUDA is absent. ``timings`` holds the phase times, each ended by a
+    device synchronize."""
     device = resolve_device(device)
     _check_precond(precond)
     _check_fitted(fitted)
+    _check_unported(unported)
     if problem is None:
         problem = default_problem()
     if cg_params is None:
@@ -241,35 +519,53 @@ def solve_fictdom_structured(
                                 divergence_threshold=1e8, max_iter=50000,
                                 apply_preconditioner=True)
     hdi = HHODegreeInfo(degree + 1, degree)
+    eta = nitsche_eta(degree)
     timings = {}
 
-    fine = build_level(N, hdi, problem, nitsche_eta(degree), int_refsteps,
-                       device=device, dtype=dtype, fitted=fitted,
-                       timings=timings)
-    mesh = fine.mesh
+    fine = build_level(N, hdi, problem, eta, int_refsteps, device=device,
+                       dtype=dtype, fitted=fitted, timings=timings)
+
+    levels = {N: fine}
+    if precond == "mg":
+        t0 = time.perf_counter()
+        levels.update(build_coarse_levels(
+            N, hdi, problem, eta, int_refsteps, device=device, dtype=dtype,
+            fitted=fitted, mg_coarsest=mg_coarsest))
+        synchronize(device)
+        timings["assemble_coarse_s"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
     fsys = face_system(fine, N, hdi, problem, precond, device=device)
     synchronize(device)
     timings["setup_s"] = time.perf_counter() - t0
 
+    apply_precond = fsys.precond
+    if precond == "mg":
+        t0 = time.perf_counter()
+        apply_precond = level_multigrid(
+            levels, hdi, mg_coarsest=mg_coarsest, n_smooth=n_smooth,
+            patch_ring=patch_ring, patch_colors=patch_colors,
+            cheb_degree=cheb_degree, patch_sweeps=patch_sweeps).precondition
+        synchronize(device)
+        timings["mg_setup_s"] = time.perf_counter() - t0
+    del levels
+
     t0 = time.perf_counter()
     res = cg.conjugated_gradient(fsys.apply_S, fsys.rhs, fsys.diag,
-                                 cg_params, precond=fsys.precond)
+                                 cg_params, precond=apply_precond)
     synchronize(device)
     timings["cg_s"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    local = cells_last.solve_recover_cl(fsys.sys, fine.cond, res.x,
-                                        fsys.gF_cl)
+    local = recover_local(fsys, fine, hdi, res.x)
     synchronize(device)
     timings["recover_s"] = time.perf_counter() - t0
 
     h1 = None
     if compute_h1:
         t0 = time.perf_counter()
-        h1 = fictdom_h1_error_chunked(mesh, cell_geometry(mesh), fine.batch,
-                                      fine.cell_loc, hdi, local,
+        h1 = fictdom_h1_error_chunked(fine.mesh, cell_geometry(fine.mesh),
+                                      fine.batch, fine.cell_loc, hdi, local,
                                       problem.sol_grad, side)
         timings["h1_s"] = time.perf_counter() - t0
 

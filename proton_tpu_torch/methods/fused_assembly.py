@@ -10,7 +10,10 @@ the cells-last layout [d*d, C] with d = cbs + 4*fbs:
   only for CPU tensors;
 - ``fitted_local_operator_plain`` is the same function as batched tensor
   math (the algorithm of proton_tpu/methods/hho.py: hho_laplacian +
-  naive_stabilization);
+  naive_stabilization); ``reconstruction_and_operator_plain`` is the
+  same computation returning the reconstruction operator as well, which
+  the multigrid transfers need for one cell and the kernel does not
+  write;
 - ``fitted_local_operator`` is the mesh-level wrapper (JAX :383).
 
 Both the kernel and the plain version take the quadrature nodes and the
@@ -20,6 +23,7 @@ basis exponent order from this package's ``gauss_legendre`` and
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 
@@ -89,10 +93,13 @@ def shared_rows(cell_degree: int, face_degree: int) -> int:
             4 * fbs * cbs)
 
 
-def fitted_local_operator_plain(corners, bar, diam, meas, normals, fgeo,
-                                cell_degree: int, face_degree: int):
-    """lc [d*d, C] as batched tensor math: the same function as the
-    kernel, on the same packed inputs."""
+def reconstruction_and_operator_plain(corners, bar, diam, meas, normals,
+                                      fgeo, cell_degree: int,
+                                      face_degree: int):
+    """(oper [C, rbs-1, d], lc [C, d, d]) as batched tensor math on the
+    packed inputs: the gradient-reconstruction operator (hho_laplacian's
+    first result, which the kernel does not write) and the local operator
+    the kernel computes."""
     recdeg = face_degree + 1
     rbs, cbs, fbs, d = _sizes(cell_degree, face_degree)
     C = corners.shape[-1]
@@ -161,7 +168,17 @@ def fitted_local_operator_plain(corners, bar, diam, meas, normals, fgeo,
     oper_s = torch.cat([ratio, neg_eyes.expand(C, 4, fbs, 4 * fbs)], dim=3)
     mo = torch.einsum("cfij,cfjs->cfis", mass, oper_s)
     lc += torch.einsum("cfir,cfis->crs", oper_s, mo) / meas[0][:, None, None]
-    return lc.permute(1, 2, 0).reshape(d * d, C)
+    return oper, lc
+
+
+def fitted_local_operator_plain(corners, bar, diam, meas, normals, fgeo,
+                                cell_degree: int, face_degree: int):
+    """lc [d*d, C] as batched tensor math: the same function as the
+    kernel, on the same packed inputs."""
+    lc = reconstruction_and_operator_plain(corners, bar, diam, meas, normals,
+                                           fgeo, cell_degree, face_degree)[1]
+    d = lc.shape[1]
+    return lc.permute(1, 2, 0).reshape(d * d, -1)
 
 
 @functools.lru_cache(maxsize=None)
@@ -227,8 +244,9 @@ def fused_local_operator(corners, bar, diam, meas, normals, fgeo,
                          cell_degree: int, face_degree: int):
     """lc [d*d, C] for packed cells-last inputs (see pack_inputs). CUDA
     tensors launch the kernel (and count the launch in
-    ``fused_local_operator.launches``); CPU tensors take the plain
-    version."""
+    ``fused_local_operator.launches``, with its cell count appended to
+    ``fused_local_operator.launch_cells``, which keeps the last 64); CPU
+    tensors take the plain version."""
     inputs = (corners, bar, diam, meas, normals, fgeo)
     C = corners.shape[-1]
     shapes = ((4, 2, C), (2, C), (1, C), (1, C), (4, 2, C), (4, 5, C))
@@ -252,10 +270,12 @@ def fused_local_operator(corners, bar, diam, meas, normals, fgeo,
     out = torch.empty((d * d, C), dtype=corners.dtype, device=corners.device)
     _launch(inputs, out, cell_degree, face_degree)
     fused_local_operator.launches += 1
+    fused_local_operator.launch_cells.append(C)
     return out
 
 
 fused_local_operator.launches = 0
+fused_local_operator.launch_cells = collections.deque(maxlen=64)
 
 
 def fitted_local_operator(mesh, geom, hdi: HHODegreeInfo,

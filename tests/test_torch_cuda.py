@@ -1,5 +1,6 @@
 """Tests of proton_tpu_torch that need an NVIDIA GPU: each hand-written
-kernel against its plain PyTorch version on the card. They skip with a
+kernel against its plain PyTorch version on the card, and the default
+solve on the card against the same solve on the CPU. They skip with a
 reason where no card is present. This file imports neither JAX nor
 proton_tpu, so on a machine without JAX it runs alone:
 
@@ -12,7 +13,9 @@ import torch
 
 from proton_tpu_torch.core.geometry import cell_geometry
 from proton_tpu_torch.core.mesh import make_poly_mesh
+from proton_tpu_torch.cut import fictdom_structured as fs
 from proton_tpu_torch.methods import fused_assembly as fa
+from proton_tpu_torch.solvers import cg
 
 
 def _jittered_cuda_mesh(N, seed):
@@ -106,3 +109,29 @@ def test_fused_assembly_kernel_rejects_other_geometry():
             fa._launch(inp, out, 2, 1, geometry)
     torch.cuda.synchronize()
     assert not out.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fitted", ["lean", "full"])
+def test_multigrid_solve_on_card_matches_cpu(fitted):
+    """The multigrid-preconditioned 32^2 k=1 solve on the card (K1 on the
+    unit cell and the displaced cells, or on every cell) against the same
+    solve on the CPU (the plain version): equal iteration counts, local
+    dofs within 1e-9; K1 was launched on every level."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    params = cg.CGParams(convergence_threshold=1e-12,
+                         divergence_threshold=1e8, max_iter=50000,
+                         apply_preconditioner=True)
+    fs._unit_cell_host.cache_clear()
+    before = fa.fused_local_operator.launches
+    card = fs.solve_fictdom_structured(32, 1, fitted=fitted, cg_params=params)
+    launched = fa.fused_local_operator.launches - before
+    host = fs.solve_fictdom_structured(32, 1, fitted=fitted,
+                                       cg_params=params, device="cpu")
+    assert card.local.device.type == "cuda"
+    assert launched >= 3        # 32^2, 16^2 and 8^2
+    assert card.exit_reason == host.exit_reason == cg.CONVERGED
+    assert abs(card.iterations - host.iterations) <= 1
+    assert float((card.local.cpu() - host.local).abs().max()) < 1e-9
+    assert np.isclose(card.h1_error, host.h1_error, rtol=1e-7)

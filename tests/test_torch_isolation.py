@@ -61,7 +61,12 @@ def test_source_imports_no_jax(path):
 
 
 def test_solve_without_device_raises_without_cuda(monkeypatch):
-    """No device given and no CUDA: the entry point raises."""
+    """No device given and no CUDA: the entry point raises, on its
+    default path (lean + multigrid) and on every other."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         fs.solve_fictdom_structured(8, 1)
+    for kw in (dict(precond="mg"), dict(precond="mg", fitted="full"),
+               dict(precond="block_jacobi", fitted="full")):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            fs.solve_fictdom_structured(8, 1, **kw)

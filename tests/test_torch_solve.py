@@ -157,6 +157,7 @@ def test_end_to_end_gates(N, k):
     (see below for the cut cells' cell dofs at k=2), H1 within rtol
     1e-6."""
     r = fs.solve_fictdom_structured(N, k, precond="block_jacobi",
+                                    fitted="full",
                                     cg_params=cg.CGParams(**_cgp()),
                                     device="cpu")
     iters, h1 = GATES[(N, k)]
@@ -164,6 +165,7 @@ def test_end_to_end_gates(N, k):
     assert abs(r.iterations - iters) <= 2
     assert np.isclose(r.h1_error, h1, rtol=1e-6)
     r = fs.solve_fictdom_structured(N, k, precond="block_jacobi",
+                                    fitted="full",
                                     cg_params=cg.CGParams(**_cgp(1e-12)),
                                     device="cpu")
     jr = jfs.solve_fictdom_structured(N, k, precond="block_jacobi",
@@ -185,13 +187,13 @@ def test_end_to_end_gates(N, k):
 
 def test_jacobi_solve_and_unported_options():
     """The Jacobi-preconditioned solve converges to the same H1 error;
-    options of later slices raise NotImplementedError."""
-    r = fs.solve_fictdom_structured(16, 1, precond="jacobi",
+    options that are not ported raise NotImplementedError."""
+    r = fs.solve_fictdom_structured(16, 1, precond="jacobi", fitted="full",
                                     cg_params=cg.CGParams(**_cgp()),
                                     device="cpu")
     assert r.exit_reason == cg.CONVERGED
     assert np.isclose(r.h1_error, GATES[(16, 1)][1], rtol=1e-6)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fs.solve_fictdom_structured(8, 1, precond="mg", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fs.solve_fictdom_structured(8, 1, fitted="lean", device="cpu")
+    for unported in (dict(fitted="uniform"), dict(mg_galerkin=True),
+                     dict(cg_segment=25)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            fs.solve_fictdom_structured(8, 1, device="cpu", **unported)
