@@ -45,7 +45,29 @@ Phases, in order, each printing its numbers on lines of its own:
     time by region (operator, Chebyshev, patch, restrict, prolong, coarse
     solve, the rest) and by level, kernel launches per iteration, the
     device's busy share, and the scalar reads and host-to-device copies
-    per iteration (one read, the CG exit test, and no copy).
+    per iteration (one read, the CG exit test, and no copy);
+
+the uncut HHO path (methods/hho.py, assembly.py, condensation.py,
+poisson.py, obstacle.py; no kernel of its own):
+
+11. [hho] on the 1024^2 quad mesh at k=1 and k=2: hho_laplacian +
+    naive_stabilization against K1 on the same mesh (max|diff| / max|K1|
+    < 1e-11), and the time and peak memory of hho_laplacian +
+    fancy_stabilization;
+12. [convergence] the BASELINE configuration, convergence_test's study at
+    k=0..3, N=16..256, Jacobi PCG at tol 1e-12: N=16 and 32 equal to the
+    JAX package's CPU numbers (errors rtol 1e-6, iterations within 2), the
+    orders from 64^2 to 128^2 (L2 k+2, energy k+1, +-0.2);
+13. [poisson_1024] 1024^2 k=1 with solve_poisson (full system) and with
+    solve_condensed (gather form), tol 1e-12: the two local solutions
+    agree, L2 and energy orders from 512^2 near 3 and 2, iterations, ms
+    per iteration, time by phase and peak memory;
+14. [obstacle] run_obstacle(N, k), N = 8 ... 128, k = 0, 1: all ten energy
+    errors equal to the reference's stored table (rel 1e-4);
+15. [polymesh] brick meshes (6-gons, with 4- and 5-gons at the boundary)
+    of 16^2, 256^2 and 512^2 bricks loaded with load_poly_mesh and solved
+    at HHODegreeInfo(k, k), k = 0, 1: the 16^2 mesh equal to the JAX
+    package's CPU numbers, the L2 orders from 256^2 to 512^2.
 
 Any failed check raises, so the script exits non-zero and prints no
 result. Without a CUDA device it exits non-zero before any phase. The
@@ -82,6 +104,58 @@ MG_GATES = {32: (15, 1.134476548999272e-3), 64: (31, 2.9134002094604466e-4)}
 # 1e-4.
 MG_GATES_K2 = {64: (79, 3.511861908955221e-6),
                128: (166, 1.7251244624837503e-6)}
+
+# The JAX package on the CPU in float64: (L2, L2 projection, energy, CG
+# iterations) of the convergence study's solve, HHODegreeInfo(k + 1, k),
+# HHO stabilization, Jacobi PCG at tol 1e-12, max_iter 3 * n_dofs (the
+# loop of proton_tpu/apps/convergence_test.py with write_files=False; they
+# equal RESULTS.md:14-33 to its three digits):
+#   solve_poisson(make_quad_mesh(Nx=N, Ny=N), build_dofmap(mesh, hdi), hdi,
+#                 rhs, sol, "hho", cgp); compute_errors(mesh, hdi, s, sol,
+#                 grad)
+CONVERGENCE_GATES = {
+    (0, 16): (0.013701639764531252, 0.01360735074042245,
+              0.17797381888468272, 3),
+    (0, 32): (0.0034297752773830457, 0.003406195247076536,
+              0.08902274419419968, 3),
+    (1, 16): (0.0003510074491135749, 0.00034626374512449794,
+              0.008642172473482673, 10),
+    (1, 32): (4.31639460481676e-05, 4.255989317592748e-05,
+              0.0021243470741231906, 14),
+    (2, 16): (1.4585359731267815e-05, 1.4517540014975812e-05,
+              0.0002662853331792258, 34),
+    (2, 32): (9.1305997389951e-07, 9.088202960204327e-07,
+              3.331395357478813e-05, 38),
+    (3, 16): (3.826580195194054e-07, 3.8170970970345493e-07,
+              6.582203369613157e-06, 115),
+    (3, 32): (1.1973116674337884e-08, 1.19434692823322e-08,
+              4.116147997199549e-07, 132)}
+
+# Energy errors of the reference's stored obstacle table
+# (apps/obstacle/results/convergence.txt:1-5, BASELINE.md:12-13).
+OBSTACLE_TABLE = {0: {8: 2.26205, 16: 1.2833, 32: 0.650286, 64: 0.326314,
+                      128: 0.163344},
+                  1: {8: 0.197735, 16: 0.0588187, 32: 0.0171607,
+                      64: 0.00529786, 128: 0.00168321}}
+
+# The JAX package on the CPU in float64, proton_tpu/apps/polymesh.py's
+# solve (HHODegreeInfo(k, k), Jacobi PCG at tol 1e-12, max_iter
+# 3 * n_dofs) on the 16 x 16 brick mesh of
+# proton_tpu_torch/tools/brick_mesh.py: (L2 error against the projection,
+# CG iterations). At 32 x 32 bricks: 0.0027157896578157386 (k=0) and
+# 5.099341984178092e-05 (k=1), orders 1.99 and 2.99.
+BRICK16_GATES = {0: (0.010804982244290178, 79),
+                 1: (0.00040385578148711607, 195)}
+
+# Phase 13: the full and the condensed 1024^2 k=1 solutions may differ by
+# this share of max|u|. Both stop at ||r|| < 1e-12 ||b||, which bounds the
+# error of each by cond(A) x 1e-12 relative: with cond ~ N^2 that bound is
+# ~1e-6 at 1024^2, far above what the solves leave. On the CPU (the port,
+# float64) the two agree to 2.4e-14, 1.7e-13 and 6.2e-13 at 64^2, 128^2
+# and 256^2 (x2.7-7 per doubling: at most ~3e-11 at 1024^2). 1e-9 keeps a
+# factor 30 over that and stays below the L2 discretization error there
+# (~1.3e-9, k=1), so a difference that passes cannot move the orders.
+POISSON_AGREEMENT = 1e-9
 
 # Peak rates (NVIDIA data sheets, dense, at the full power limit):
 # memory bytes/s, float64 and float32 FLOP/s outside the tensor cores.
@@ -561,6 +635,297 @@ def profile_mg(N: int, k: int, iterations: int, device: str = "cuda") -> None:
              share=e.self_device_time_total / device_us)
 
 
+def hho_vs_k1(N: int, bw: float) -> None:
+    """Phase 11: the generic operators on the N^2 quad mesh. For k=1 and
+    k=2: hho_laplacian's data + naive_stabilization against K1 (the same
+    function on quads), then the time (CUDA events) and the peak memory
+    of hho_laplacian + fancy_stabilization, the uncut path's operator."""
+    from proton_tpu_torch.core.geometry import cell_geometry
+    from proton_tpu_torch.core.mesh import make_quad_mesh
+    from proton_tpu_torch.core.ops import HHODegreeInfo
+    from proton_tpu_torch.methods import fused_assembly as fa
+    from proton_tpu_torch.methods import hho
+
+    mesh = make_quad_mesh(Nx=N, Ny=N, device="cuda")
+    geom = cell_geometry(mesh)
+    for k in (1, 2):
+        hdi = HHODegreeInfo(k + 1, k)
+        k1 = fa.fused_local_operator(*fa.pack_inputs(mesh, geom), k + 1, k)
+        lc = hho.hho_laplacian(mesh, geom, hdi)[1]
+        lc += hho.naive_stabilization(mesh, geom, hdi)
+        d = lc.shape[1]
+        generic = lc.permute(1, 2, 0).reshape(d * d, -1)
+        max_abs = float((generic - k1).abs().max())
+        rel = max_abs / float(k1.abs().max())
+        del k1, lc, generic
+        torch.cuda.empty_cache()
+
+        def fancy():
+            oper, data = hho.hho_laplacian(mesh, geom, hdi)
+            return data + hho.fancy_stabilization(mesh, geom, hdi, oper)
+
+        def naive():
+            lc = hho.hho_laplacian(mesh, geom, hdi)[1]
+            return lc + hho.naive_stabilization(mesh, geom, hdi)
+
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ms = cuda_ms(fancy, 3)
+        peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+        naive_ms = cuda_ms(naive, 3)
+        out_gb = N * N * d * d * 8 / 1e9
+        line("hho", N=N, k=k, d=d, naive_vs_k1_max_rel_err=rel,
+             naive_vs_k1_max_abs_err=max_abs, tol=1e-11,
+             laplacian_fancy_ms=ms, laplacian_naive_ms=naive_ms,
+             peak_gb=peak, lc_gb=out_gb,
+             lc_write_bound_ms=out_gb * 1e9 / bw * 1e3)
+        check(rel < 1e-11, f"k={k}: generic naive path differs from K1 by "
+              f"{rel}")
+        torch.cuda.empty_cache()
+
+
+def convergence_table() -> None:
+    """Phase 12: the BASELINE study (convergence_test.cpp's), k=0..3,
+    N=16..256, Jacobi PCG at tol 1e-12, against the JAX package's CPU
+    numbers at N=16 and 32 and the orders k+2 / k+1 from 64^2 to 128^2.
+    k=3 at 256^2 sits at the float64 floor (RESULTS.md:35-38): printed,
+    not gated."""
+    from proton_tpu_torch.apps import convergence_test as ct
+
+    t0 = time.perf_counter()
+    rows = ct.test_method_convergence(
+        ct.ConvergenceTestParams(deg_min=0, deg_max=3, min_N=16, steps=5),
+        write_files=False, device="cuda")
+    for k, krows in rows.items():
+        for i, r in enumerate(krows):
+            N = 16 << i
+            line("convergence", k=k, N=N, l2=r.l2, l2_proj=r.l2_proj,
+                 energy=r.energy, iterations=r.iterations, seconds=r.seconds)
+            if (k, N) in CONVERGENCE_GATES:
+                ref = CONVERGENCE_GATES[(k, N)]
+                for name, a, b in zip(("L2", "L2 projection", "energy"),
+                                      r[:3], ref[:3]):
+                    check(math.isclose(a, b, rel_tol=1e-6),
+                          f"k={k} N={N}: {name} error {a}, JAX {b}")
+                check(abs(r.iterations - ref[3]) <= 2,
+                      f"k={k} N={N}: {r.iterations} iterations, JAX {ref[3]}")
+        l2 = math.log2(krows[2].l2 / krows[3].l2)
+        en = math.log2(krows[2].energy / krows[3].energy)
+        line("convergence_order", k=k, l2_64_128=l2, energy_64_128=en,
+             l2_128_256=math.log2(krows[3].l2 / krows[4].l2),
+             energy_128_256=math.log2(krows[3].energy / krows[4].energy))
+        check(k + 1.8 <= l2 <= k + 2.2, f"k={k}: L2 order {l2}")
+        check(k + 0.8 <= en <= k + 1.2, f"k={k}: energy order {en}")
+    line("convergence_total", seconds=time.perf_counter() - t0)
+
+
+def _sin_problem():
+    pi = math.pi
+
+    def sol(p):
+        return torch.sin(pi * p[..., 0]) * torch.sin(pi * p[..., 1])
+
+    def grad(p):
+        return torch.stack(
+            [pi * torch.cos(pi * p[..., 0]) * torch.sin(pi * p[..., 1]),
+             pi * torch.sin(pi * p[..., 0]) * torch.cos(pi * p[..., 1])], -1)
+
+    return (lambda p: 2 * pi ** 2 * sol(p)), sol, grad
+
+
+def poisson_solves(N: int, k: int, tol: float):
+    """Phase 13 at one size: the full (cell + face) system with
+    solve_poisson and the condensed face system with solve_condensed
+    (gather form), each timed by phase and checked converged. Returns
+    {form: (local, errors)}."""
+    from proton_tpu_torch.core.geometry import cell_geometry
+    from proton_tpu_torch.core.mesh import make_quad_mesh
+    from proton_tpu_torch.core.ops import HHODegreeInfo, cell_rhs
+    from proton_tpu_torch.methods import assembly, condensation, poisson
+    from proton_tpu_torch.solvers import cg
+    from proton_tpu_torch.utils.timing import timed
+
+    rhs, sol, grad = _sin_problem()
+    hdi = HHODegreeInfo(k + 1, k)
+    params = cg.CGParams(convergence_threshold=tol, divergence_threshold=1e8,
+                         max_iter=200000, apply_preconditioner=True)
+    dev = torch.device("cuda")
+    mesh = make_quad_mesh(Nx=N, Ny=N, device=dev)
+    out = {}
+    for form in ("full", "condensed"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t, t0 = {}, time.perf_counter()
+        with timed(t, "dofmap_s", dev):
+            dm = assembly.build_dofmap(mesh, hdi)
+        if form == "full":
+            s = poisson.solve_poisson(mesh, dm, hdi, rhs, sol, "hho",
+                                      params, timings=t)
+            its, exit_code = s.iterations, s.exit_reason
+        else:
+            with timed(t, "geometry_s", dev):
+                geom = cell_geometry(mesh)
+            with timed(t, "local_operators_s", dev):
+                oper, lc = poisson.assemble_local(mesh, geom, hdi)
+            with timed(t, "rhs_s", dev):
+                f = cell_rhs(mesh, geom, hdi.cell_degree, rhs)
+                g = assembly.local_dirichlet_data(
+                    dm, mesh, assembly.dirichlet_face_data(mesh, hdi, sol))
+                inc = assembly.build_face_incidence(mesh, dm)
+            local, res = condensation.solve_condensed(dm, lc, f, g, inc,
+                                                      params, timings=t)
+            del lc
+            s = poisson.PoissonSolution(res.x, local, oper, res.iterations,
+                                        res.exit_reason, res.rel_residual,
+                                        None)
+            its, exit_code = res.iterations, res.exit_reason
+        with timed(t, "errors_s", dev):
+            e = poisson.compute_errors(mesh, hdi, s, sol, grad)
+            errs = tuple(float(v) for v in e)
+        line("poisson", N=N, k=k, form=form, tol=tol, exit=exit_code,
+             iterations=its, ms_per_iteration=1e3 * t["cg_s"] / max(its, 1),
+             l2=errs[0], l2_proj=errs[1], energy=errs[2],
+             wall_s=time.perf_counter() - t0,
+             peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+             **{key: round(v, 4) for key, v in t.items()})
+        check(exit_code == cg.CONVERGED, f"{N}^2 {form}: exit {exit_code}")
+        check(bool(torch.isfinite(s.local).all()), f"{N}^2 {form}: local")
+        out[form] = (s.local, errs)
+        del s
+    return out
+
+
+def operator_applies(N: int, k: int) -> None:
+    """The three operator forms of the uncut path at N^2 (CUDA events,
+    one apply each on a random vector): the full system (gather, batched
+    product, indexed-add scatter), and the condensed face system with the
+    scatter and with the gather through the face incidence."""
+    from proton_tpu_torch.core.geometry import cell_geometry
+    from proton_tpu_torch.core.mesh import make_quad_mesh
+    from proton_tpu_torch.core.ops import HHODegreeInfo
+    from proton_tpu_torch.methods import assembly, condensation, poisson
+
+    hdi = HHODegreeInfo(k + 1, k)
+    mesh = make_quad_mesh(Nx=N, Ny=N, device="cuda")
+    geom = cell_geometry(mesh)
+    lc = poisson.assemble_local(mesh, geom, hdi)[1]
+    dm = assembly.build_dofmap(mesh, hdi)
+    S = condensation.condense(lc, lc.new_zeros((N * N, dm.cbs)), dm.cbs).S
+    inc = assembly.build_face_incidence(mesh, dm)
+    nfd = dm.n_dofs - N * N * dm.cbs
+    x, xf = (torch.randn(n, dtype=torch.float64, device="cuda")
+             for n in (dm.n_dofs, nfd))
+    full = assembly.make_operator(dm, lc)
+    scatter = condensation.make_condensed_operator(dm, None, S)
+    gather = condensation.make_condensed_operator(dm, inc, S)
+    check(float((scatter(xf) - gather(xf)).abs().max()) <=
+          1e-12 * float(scatter(xf).abs().max()),
+          "condensed scatter and gather applies differ")
+    line("operator_apply", N=N, k=k, full_ms=cuda_ms(lambda: full(x), 20),
+         condensed_scatter_ms=cuda_ms(lambda: scatter(xf), 20),
+         condensed_gather_ms=cuda_ms(lambda: gather(xf), 20),
+         full_dofs=dm.n_dofs, face_dofs=nfd,
+         lc_gb=lc.numel() * 8 / 1e9, S_gb=S.numel() * 8 / 1e9)
+    del lc, S
+    torch.cuda.empty_cache()
+
+
+def poisson_1024() -> None:
+    """Phase 13: 1024^2 k=1 (and 512^2 for the orders), full against
+    condensed. Both stop at a relative residual of 1e-12; the local
+    solutions then differ by the algebraic error of the two solves."""
+    operator_applies(1024, 1)
+    r512 = poisson_solves(512, 1, 1e-12)
+    r1024 = poisson_solves(1024, 1, 1e-12)
+    full, cond = r1024["full"][0], r1024["condensed"][0]
+    diff = float((full - cond).abs().max())
+    umax = float(full.abs().max())
+    line("poisson_full_vs_condensed", N=1024, max_abs_local_diff=diff,
+         max_abs_u=umax, rel=diff / umax)
+    check(diff <= POISSON_AGREEMENT * umax,
+          f"1024^2: full and condensed local dofs differ by {diff}")
+    del full, cond
+    for form in ("full", "condensed"):
+        (l2a, _, ena), (l2b, _, enb) = r512[form][1], r1024[form][1]
+        l2, en = math.log2(l2a / l2b), math.log2(ena / enb)
+        line("poisson_order", form=form, l2_512_1024=l2, energy_512_1024=en)
+        check(2.8 <= l2 <= 3.2, f"{form}: L2 order {l2}")
+        check(1.8 <= en <= 2.2, f"{form}: energy order {en}")
+    del r512, r1024
+    torch.cuda.empty_cache()
+
+
+def obstacle_table() -> None:
+    """Phase 14: run_obstacle(N, k) at the reference app's configuration
+    against its stored table, with the active-set iterations, the CG
+    iterations summed over them, and the seconds."""
+    from proton_tpu_torch.methods import obstacle
+
+    for k, table in OBSTACLE_TABLE.items():
+        for N, ref in table.items():
+            cg_its = []
+            t0 = time.perf_counter()
+            r = obstacle.run_obstacle(
+                N, k, device="cuda",
+                iteration_callback=lambda i, f: cg_its.append(
+                    f["cg_iterations"]))
+            err = float(r.energy_error)
+            line("obstacle", N=N, k=k, energy_error=err, reference=ref,
+                 rel=abs(err - ref) / ref, active_set_iterations=r.iterations,
+                 cg_iterations=sum(cg_its), converged=r.converged,
+                 seconds=time.perf_counter() - t0)
+            check(r.converged, f"obstacle N={N} k={k} did not converge")
+            check(abs(err - ref) / ref < 1e-4,
+                  f"obstacle N={N} k={k}: energy error {err}, table {ref}")
+
+
+def polymesh_bricks() -> None:
+    """Phase 15: brick meshes written under build/ and loaded with
+    load_poly_mesh on the card, solved as apps/polymesh.py does at
+    HHODegreeInfo(k, k): the 16^2 mesh against the JAX package's numbers,
+    the L2 order (against the projection) from 256^2 to 512^2 bricks (the
+    JAX package's 16 -> 32 orders: 1.99 at k=0, 2.99 at k=1)."""
+    from pathlib import Path
+
+    from proton_tpu_torch.apps import polymesh
+    from proton_tpu_torch.tools.brick_mesh import write_brick_mesh
+
+    out_dir = Path(__file__).resolve().parent / "build"
+    out_dir.mkdir(exist_ok=True)
+    err = {}
+    for n in (16, 256, 512):
+        path = out_dir / f"brick_{n}.txt"
+        t0 = time.perf_counter()
+        write_brick_mesh(path, n, n)
+        write_s = time.perf_counter() - t0
+        for k in (0, 1):
+            torch.cuda.reset_peak_memory_stats()
+            r = polymesh.run_polymesh(str(path), k, "cuda")
+            err[(n, k)] = r.l2_proj
+            npts = torch.bincount(r.mesh.cell_npts).tolist()
+            line("polymesh", bricks=n, k=k, cells=r.mesh.num_cells,
+                 faces=r.mesh.num_faces,
+                 cells_by_vertices={i: c for i, c in enumerate(npts) if c},
+                 l2_proj=r.l2_proj, iterations=r.sol.iterations,
+                 exit=r.sol.exit_reason, write_s=write_s, load_s=r.load_s,
+                 solve_s=r.solve_s,
+                 peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+            check(r.sol.exit_reason == 0, f"bricks {n} k={k}: not converged")
+            if n == 16:
+                ref, ref_its = BRICK16_GATES[k]
+                check(math.isclose(r.l2_proj, ref, rel_tol=1e-6),
+                      f"bricks 16 k={k}: L2 {r.l2_proj}, JAX {ref}")
+                check(abs(r.sol.iterations - ref_its) <= 2,
+                      f"bricks 16 k={k}: {r.sol.iterations} iterations, "
+                      f"JAX {ref_its}")
+            del r
+            torch.cuda.empty_cache()
+    for k, least in ((0, 1.8), (1, 2.8)):
+        order = math.log2(err[(256, k)] / err[(512, k)])
+        line("polymesh_order", k=k, l2_256_512=order, least=least)
+        check(order >= least, f"bricks k={k}: L2 order {order} < {least}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -755,6 +1120,16 @@ def main() -> int:
 
     # 10. where a multigrid-PCG iteration's time goes
     profile_mg(1024, 1, iterations=20)
+    torch.cuda.empty_cache()
+
+    # 11-15. the uncut HHO path
+    t_uncut = time.perf_counter()
+    hho_vs_k1(1024, bw)
+    convergence_table()
+    poisson_1024()
+    obstacle_table()
+    polymesh_bricks()
+    line("uncut_total", seconds=round(time.perf_counter() - t_uncut, 3))
 
     line("total", seconds=round(time.perf_counter() - t_start, 3))
     print(smi, flush=True)

@@ -1,6 +1,8 @@
 """Build the port's state from the JAX package's pytrees, given as numpy
-arrays: any object with the field names of proton_tpu's ``Mesh``,
-``CellGeom``, ``CutData``, ``CutCellBatch``, ``CondensedCL``,
+arrays: any object with the field names of proton_tpu's ``Mesh`` (the
+generated and the loaded ones), ``CellGeom``, ``DofMap``,
+``FaceIncidence``, ``CondensedSystem``, ``PoissonSolution``,
+``ObstacleResult``, ``CutData``, ``CutCellBatch``, ``CondensedCL``,
 ``UniformCondCL`` or ``GridVecCL`` (``np.asarray`` is applied to each
 field), and the per-level data of its multigrid. The tests use
 these so that each stage of the two packages runs from identical inputs.
@@ -15,7 +17,11 @@ from .core.geometry import CellGeom
 from .core.mesh import Mesh
 from .cut.classify import CutData
 from .cut.methods import CutCellBatch
+from .methods.assembly import DofMap, FaceIncidence
 from .methods.cells_last import CondensedCL, GridVecCL, UniformCondCL
+from .methods.condensation import CondensedSystem
+from .methods.obstacle import ObstacleResult
+from .methods.poisson import PoissonSolution
 
 
 def tensor(a, device) -> torch.Tensor:
@@ -44,6 +50,38 @@ def mesh(m, device) -> Mesh:
 
 def cell_geom(g, device) -> CellGeom:
     return _fields(CellGeom, g, device)
+
+
+def dofmap(dm, device) -> DofMap:
+    return DofMap(**{f: tensor(getattr(dm, f), device) for f in (
+        "asm_idx", "free_local", "dirichlet_local", "face_compress",
+        "is_dirichlet_face")}, cbs=dm.cbs, fbs=dm.fbs, n_cells=dm.n_cells,
+        n_dofs=dm.n_dofs)
+
+
+def face_incidence(inc, device) -> FaceIncidence:
+    return FaceIncidence(tensor(inc.face_cells, device),
+                         tensor(inc.face_slot, device),
+                         tensor(inc.expand, device))
+
+
+def condensed_system(c, device) -> CondensedSystem:
+    return _fields(CondensedSystem, c, device)
+
+
+def poisson_solution(s, device) -> PoissonSolution:
+    return PoissonSolution(
+        x=tensor(s.x, device), local=tensor(s.local, device),
+        oper=tensor(s.oper, device), iterations=int(s.iterations),
+        exit_reason=int(s.exit_reason), rel_residual=float(s.rel_residual),
+        history=None if s.history is None else tensor(s.history, device))
+
+
+def obstacle_result(r, device) -> ObstacleResult:
+    return ObstacleResult(
+        alpha=tensor(r.alpha, device), beta=tensor(r.beta, device),
+        iterations=int(r.iterations), converged=bool(r.converged),
+        energy_error=tensor(r.energy_error, device))
 
 
 def cut_data(c, device) -> CutData:

@@ -52,6 +52,33 @@ def polygon_diameter(pts):
     return torch.sqrt(torch.amax(d2, dim=(-2, -1)))
 
 
+def cell_barycenters(mesh):
+    return polygon_barycenter(cell_points(mesh))
+
+
+def cell_measures(mesh):
+    return polygon_measure(cell_points(mesh))
+
+
+def cell_diameters(mesh):
+    return polygon_diameter(cell_points(mesh))
+
+
+def face_points(mesh):
+    """[F, 2, 2] endpoints of every global face in sorted-ptid order (the
+    order the face basis direction depends on, bases.hpp:260-262)."""
+    return mesh.points[mesh.face_ptids]
+
+
+def face_barycenters(mesh):
+    return torch.mean(face_points(mesh), dim=1)
+
+
+def face_measures(mesh):
+    fp = face_points(mesh)
+    return torch.linalg.vector_norm(fp[:, 1] - fp[:, 0], dim=-1)
+
+
 def cell_edge_vertices(mesh):
     """(e0, e1) [C, Pmax, 2]: local edge k joins points (k, k+1 mod n);
     padded edges are degenerate."""

@@ -34,6 +34,10 @@ class HHODegreeInfo:
     def reconstruction_degree(self) -> int:
         return self.face_degree + 1
 
+    @classmethod
+    def equal_order(cls, degree: int) -> "HHODegreeInfo":
+        return cls(degree, degree)
+
 
 def cell_rhs(mesh, geom, degree: int, f, di: int = 0):
     """[C, B] load vectors for a callable f(pts [..., 2]) -> [...]
@@ -106,3 +110,39 @@ def robust_spd_solve(A, B):
         A_reg = A + (16.0 * eps * tr)[..., None, None] * eye
         X = torch.where(bad[..., None, None], torch.linalg.solve(A_reg, B), X)
     return X
+
+
+def cell_mass_matrices(mesh, geom, degree: int, di: int = 0):
+    """[C, B, B] cell mass matrices (make_mass_matrix cell overload,
+    utils.hpp:113-131); quadrature degree 2*(degree+di)."""
+    rule = quadrature.cell_rule(mesh, geom, 2 * (degree + di))
+    phi = bases.eval_cell_basis(rule.pts, geom.bar[:, None, :],
+                                geom.diam[:, None], degree)
+    return torch.einsum("cq,cqi,cqj->cij", rule.w, phi, phi)
+
+
+def spd_inverse(A):
+    """Batched SPD inverse: robust_spd_solve against the identity."""
+    eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+    return robust_spd_solve(A, eye.expand(A.shape))
+
+
+def project_function(mesh, geom, hdi: HHODegreeInfo, f, di: int = 0):
+    """L2 projection of f onto the per-cell HHO space [C, cbs + nF*fbs]
+    (project_function, utils.hpp:199-227). Padded face slots get zeros."""
+    cm = cell_mass_matrices(mesh, geom, hdi.cell_degree, di)
+    cr = cell_rhs(mesh, geom, hdi.cell_degree, f, di)
+    cell_dofs = cho_solve_batched(cm, cr[..., None])[..., 0]
+    fm = face_mass_matrices(geom.face_pts, hdi.face_degree, di)
+    fr = face_rhs(geom.face_pts, hdi.face_degree, f, di)
+    face_dofs = cho_solve_batched(fm, fr[..., None])[..., 0]  # [C, nF, fbs]
+    face_dofs = torch.where(geom.edge_valid[..., None], face_dofs,
+                            torch.zeros_like(face_dofs))
+    C = mesh.num_cells
+    return torch.cat([cell_dofs, face_dofs.reshape(C, -1)], dim=1)
+
+
+def condition_number(A):
+    """SVD condition number (utils.hpp:229-235); batched."""
+    s = torch.linalg.svdvals(A)
+    return s[..., 0] / s[..., -1]

@@ -6,7 +6,9 @@ The JAX ``lax.while_loop`` becomes a Python loop with the same
 recurrences, the same exit tests in the same order (``rel < tol``, then
 ``it > max_iter``, then divergence) and the same returned iteration
 count. The exit test reads the residual norm on the host once per
-iteration.
+iteration; the optional residual history (the reference's per-iteration
+histfile, solver_cg.hpp:102-103) is written on the device and adds no
+read.
 
 Vectors may be a tensor or a NamedTuple of tensors (the face grids);
 inner products reduce over all members.
@@ -32,6 +34,7 @@ class CGParams:
     divergence_threshold: float = 100.0
     max_iter: int = 1000
     apply_preconditioner: bool = False
+    record_history: bool = False
 
 
 class CGResult(NamedTuple):
@@ -39,6 +42,9 @@ class CGResult(NamedTuple):
     exit_reason: int
     iterations: int
     rel_residual: float
+    # [max_iter + 2] of nr/nr0 on the device, entry i after i iterations,
+    # NaN-padded; None unless CGParams.record_history
+    history: Optional[torch.Tensor] = None
 
 
 def _map(fn, *trees):
@@ -83,13 +89,21 @@ def conjugated_gradient(apply_A: Callable, b, diag=None,
     d = precond(r)
     rho = _vdot(r, d)
     nr0 = torch.sqrt(_vdot(r, r))
+    hist = None
+    if params.record_history:
+        hist = torch.full((params.max_iter + 2,), float("nan"),
+                          dtype=nr0.dtype, device=nr0.device)
+        hist[0] = 1.0
     it, exit_code, rel = 0, -1, 1.0
     while exit_code < 0:
         y = apply_A(d)
         alpha = rho / _vdot(d, y)
         x = _axpy(alpha, d, x)
         r = _axpy(-alpha, y, r)
-        rel = float(torch.sqrt(_vdot(r, r)) / nr0)
+        rel_t = torch.sqrt(_vdot(r, r)) / nr0
+        if hist is not None:
+            hist[min(it + 1, len(hist) - 1)] = rel_t
+        rel = float(rel_t)
         if rel < params.convergence_threshold:
             exit_code = CONVERGED
         elif it > params.max_iter:
@@ -102,4 +116,14 @@ def conjugated_gradient(apply_A: Callable, b, diag=None,
             d = _axpy(rho_new / rho, d, z)
             rho = rho_new
         it += 1
-    return CGResult(x, exit_code, it, rel)
+    return CGResult(x, exit_code, it, rel, hist)
+
+
+def solve_spd_dense(A_dense, b):
+    """Small dense SPD direct solve by Cholesky: the stand-in for the
+    reference's Eigen::SparseLU path (e.g. cuthho_square.cpp:915-919) on
+    problems small enough to densify."""
+    L = torch.linalg.cholesky(A_dense)
+    if b.ndim == 1:
+        return torch.cholesky_solve(b[:, None], L)[:, 0]
+    return torch.cholesky_solve(b, L)

@@ -4,6 +4,7 @@ bases, quadrature tables, the generated mesh and the cell geometry."""
 import numpy as np
 import jax.numpy as jnp
 import pytest
+import threadpoolctl
 import torch
 
 import proton_tpu as pt
@@ -14,6 +15,17 @@ from proton_tpu_torch.core import bases, geometry, quadrature
 from proton_tpu_torch.core.mesh import make_poly_mesh, make_quad_mesh
 
 CPU = torch.device("cpu")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """BLAS and torch on one thread: with a pool per core in every test
+    worker the cores are oversubscribed many times over."""
+    with threadpoolctl.threadpool_limits(1):
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        yield
+        torch.set_num_threads(threads)
 
 
 @pytest.mark.parametrize("degree", [0, 1, 2, 3])

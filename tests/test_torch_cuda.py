@@ -1,21 +1,27 @@
 """Tests of proton_tpu_torch that need an NVIDIA GPU: each hand-written
-kernel against its plain PyTorch version on the card, and the default
-solve on the card against the same solve on the CPU. They skip with a
+kernel against its plain PyTorch version on the card, the default solve
+and the uncut HHO path on the card against the same computations on the
+CPU. They skip with a
 reason where no card is present. This file imports neither JAX nor
 proton_tpu, so on a machine without JAX it runs alone:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from proton_tpu_torch.core.geometry import cell_geometry
-from proton_tpu_torch.core.mesh import make_poly_mesh
+from proton_tpu_torch.core.mesh import load_poly_mesh, make_poly_mesh
+from proton_tpu_torch.core.ops import HHODegreeInfo, cell_rhs
 from proton_tpu_torch.cut import fictdom_structured as fs
+from proton_tpu_torch.methods import assembly, condensation, hho, poisson
 from proton_tpu_torch.methods import fused_assembly as fa
 from proton_tpu_torch.solvers import cg
+from proton_tpu_torch.tools.brick_mesh import write_brick_mesh
 
 
 def _jittered_cuda_mesh(N, seed):
@@ -135,3 +141,88 @@ def test_multigrid_solve_on_card_matches_cpu(fitted):
     assert abs(card.iterations - host.iterations) <= 1
     assert float((card.local.cpu() - host.local).abs().max()) < 1e-9
     assert np.isclose(card.h1_error, host.h1_error, rtol=1e-7)
+
+
+def _uncut_meshes(tmp_path):
+    """The jittered 37 x 37 quad mesh and the 12 x 9 brick mesh (4-, 5-
+    and 6-gons), on the card."""
+    write_brick_mesh(tmp_path / "brick.txt", 12, 9)
+    return {"jittered": _jittered_cuda_mesh(37, 7),
+            "brick": load_poly_mesh(str(tmp_path / "brick.txt"),
+                                    device="cuda")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [(2, 1), (1, 1), (3, 2)])
+def test_hho_operators_on_card_match_cpu(tmp_path, hd):
+    """hho_laplacian and both stabilizations on the card against the
+    same functions on the CPU, 1e-12 relative, on a jittered quad mesh
+    and on a brick mesh."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    hdi = HHODegreeInfo(*hd)
+    for mesh in _uncut_meshes(tmp_path).values():
+        host = dataclasses.replace(mesh, **{
+            f: getattr(mesh, f).cpu() for f in (
+                "points", "cell_ptids", "cell_npts", "cell_faces",
+                "face_ptids", "face_bnd")})
+        outs = []
+        for m in (mesh, host):
+            g = cell_geometry(m)
+            oper, data = hho.hho_laplacian(m, g, hdi)
+            outs.append((oper, data, hho.naive_stabilization(m, g, hdi),
+                         hho.fancy_stabilization(m, g, hdi, oper)))
+        for a, b in zip(*outs):
+            assert a.device.type == "cuda"
+            assert float((a.cpu() - b).abs().max() / b.abs().max()) < 1e-12
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cd,fd", [(1, 0), (2, 1), (3, 2)])
+def test_fused_assembly_kernel_matches_generic_naive_path(cd, fd):
+    """K1 on the jittered 37 x 37 mesh against hho_laplacian's data +
+    naive_stabilization on the card, max|diff| / max|K1| < 1e-11."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    mesh = _jittered_cuda_mesh(37, 9)
+    geom = cell_geometry(mesh)
+    hdi = HHODegreeInfo(cd, fd)
+    k1 = fa.fused_local_operator(*fa.pack_inputs(mesh, geom), cd, fd)
+    lc = hho.hho_laplacian(mesh, geom, hdi)[1] + \
+        hho.naive_stabilization(mesh, geom, hdi)
+    d = lc.shape[1]
+    generic = lc.permute(1, 2, 0).reshape(d * d, -1)
+    assert float((generic - k1).abs().max() / k1.abs().max()) < 1e-11
+
+
+@pytest.mark.cuda
+def test_poisson_solves_on_card_match_cpu():
+    """solve_poisson and solve_condensed (gather form) at 32^2 k=1 on the
+    card against the CPU: equal iteration counts, local dofs within
+    1e-10."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    pi = np.pi
+    sol = lambda p: torch.sin(pi * p[..., 0]) * torch.sin(pi * p[..., 1])
+    rhs = lambda p: 2 * pi ** 2 * sol(p)
+    hdi = HHODegreeInfo(2, 1)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        mesh = make_poly_mesh(Nx=32, Ny=32, device=dev)
+        dm = assembly.build_dofmap(mesh, hdi)
+        full = poisson.solve_poisson(mesh, dm, hdi, rhs, sol)
+        geom = cell_geometry(mesh)
+        _, lc = poisson.assemble_local(mesh, geom, hdi)
+        g = assembly.local_dirichlet_data(
+            dm, mesh, assembly.dirichlet_face_data(mesh, hdi, sol))
+        local, res = condensation.solve_condensed(
+            dm, lc, cell_rhs(mesh, geom, hdi.cell_degree, rhs), g,
+            assembly.build_face_incidence(mesh, dm))
+        runs[dev] = (full, local, res)
+    (full, local, res), (hfull, hlocal, hres) = runs["cuda"], runs["cpu"]
+    assert full.local.device.type == "cuda"
+    assert full.exit_reason == res.exit_reason == cg.CONVERGED
+    assert full.iterations == hfull.iterations
+    assert res.iterations == hres.iterations
+    assert float((full.local.cpu() - hfull.local).abs().max()) < 1e-10
+    assert float((local.cpu() - hlocal).abs().max()) < 1e-10

@@ -3,6 +3,7 @@ classification, the cut-cell operators and loads, the side measure."""
 
 import numpy as np
 import pytest
+import threadpoolctl
 import torch
 
 from proton_tpu.core.geometry import cell_geometry as jcell_geometry
@@ -15,6 +16,17 @@ from proton_tpu_torch.cut.classify import LOC_NEG, LOC_POS
 from proton_tpu_torch.cut.quadrature import side_measure
 
 CPU = torch.device("cpu")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """BLAS and torch on one thread: with a pool per core in every test
+    worker the cores are oversubscribed many times over."""
+    with threadpoolctl.threadpool_limits(1):
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        yield
+        torch.set_num_threads(threads)
 
 
 @pytest.mark.parametrize("N", [16, 32])

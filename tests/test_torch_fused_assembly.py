@@ -9,6 +9,7 @@ import re
 import numpy as np
 import jax.numpy as jnp
 import pytest
+import threadpoolctl
 import torch
 
 import proton_tpu as pt
@@ -22,6 +23,17 @@ from proton_tpu_torch.core.ops import HHODegreeInfo
 from proton_tpu_torch.methods import fused_assembly as fa
 
 CPU = torch.device("cpu")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """BLAS and torch on one thread: with a pool per core in every test
+    worker the cores are oversubscribed many times over."""
+    with threadpoolctl.threadpool_limits(1):
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        yield
+        torch.set_num_threads(threads)
 
 
 def _jittered_mesh(N, seed):

@@ -27,7 +27,10 @@ def test_every_module_imports_without_jax():
     """A fresh interpreter that cannot import jax or proton_tpu imports
     every module of the package."""
     mods = _modules()
-    assert "proton_tpu_torch.methods.fused_assembly" in mods
+    for name in ("methods.fused_assembly", "methods.hho", "methods.poisson",
+                 "methods.condensation", "methods.obstacle", "io.vtk",
+                 "utils.checkpoint", "apps.polymesh"):
+        assert "proton_tpu_torch." + name in mods
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['proton_tpu'] = None\n"
@@ -70,3 +73,27 @@ def test_solve_without_device_raises_without_cuda(monkeypatch):
                dict(precond="block_jacobi", fitted="full")):
         with pytest.raises(RuntimeError, match="CUDA"):
             fs.solve_fictdom_structured(8, 1, **kw)
+
+
+def test_uncut_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    """No device given and no CUDA: the mesh generator and loader, the
+    obstacle solve and every app's main (without --device) raise."""
+    from proton_tpu_torch.apps import convergence_test, obstacle, \
+        polymesh, stabilization_test
+    from proton_tpu_torch.core.mesh import load_poly_mesh, make_quad_mesh
+    from proton_tpu_torch.methods.obstacle import run_obstacle
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
+    missing = str(tmp_path / "no_mesh.txt")
+    for call in (lambda: make_quad_mesh(Nx=4, Ny=4),
+                 lambda: load_poly_mesh(missing),
+                 lambda: run_obstacle(4, 0),
+                 lambda: convergence_test.main(["--deg-max", "0", "--min-N",
+                                                "2", "--steps", "1",
+                                                "--no-files"]),
+                 lambda: stabilization_test.main([]),
+                 lambda: obstacle.main(["-N", "4"]),
+                 lambda: polymesh.main([missing])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()

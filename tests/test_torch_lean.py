@@ -4,15 +4,19 @@ the rhs fold, the recovery and the patch setups on the JAX package's own
 16^2 level, and the end-to-end gates of the default solve
 (precond="mg", fitted="lean")."""
 
+import functools
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
+import threadpoolctl
 import torch
 
 from proton_tpu.core.ops import HHODegreeInfo as JHHODegreeInfo
 from proton_tpu.cut import fictdom_structured as jfs
 from proton_tpu.methods import cells_last as jcl, structured as jstructured
 from proton_tpu.solvers import cg as jcg
+from proton_tpu.solvers import multigrid as jmg
 from proton_tpu_torch import convert
 from proton_tpu_torch.core.ops import HHODegreeInfo
 from proton_tpu_torch.cut import fictdom_structured as fs
@@ -39,6 +43,17 @@ def _grid(rng, fbs, n):
 def _cgp(tol=1e-10):
     return dict(convergence_threshold=tol, divergence_threshold=1e8,
                 max_iter=50000, apply_preconditioner=True)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """BLAS and torch on one thread: with a pool per core in every test
+    worker the cores are oversubscribed many times over."""
+    with threadpoolctl.threadpool_limits(1):
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        yield
+        torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")
@@ -292,10 +307,27 @@ def test_lean_block_jacobi_matches_full_block_jacobi():
                                     device="cpu")
 
 
-def test_default_solve_matches_live_jax_solve():
+def test_default_solve_matches_live_jax_solve(jax_level, monkeypatch):
     """The one live JAX lean + MG solve, 16^2 k=1, both at tol 1e-12:
     equal iteration counts within 1, per-cell local dofs within 1e-8 (the
-    cut cells' cell dofs 1e-7), H1 within rtol 1e-6."""
+    cut cells' cell dofs 1e-7), H1 within rtol 1e-6. The JAX solve takes
+    its fine level from the module's jax_level fixture (the same
+    build_level call, made once) and memoizes the pure transfer-matrix
+    builders its multigrid setup calls more than once."""
+    build_level = jfs.build_level
+
+    def shared_fine_level(n, hdi, problem, *args, **kw):
+        if (n, hdi, args, kw) == (N, JHHODegreeInfo(K + 1, K),
+                                  (jfs.nitsche_eta(K), 4, False, False),
+                                  dict(with_rhs=True, fitted="lean")) and \
+                problem.cache_key == jfs.default_problem().cache_key:
+            return jax_level
+        return build_level(n, hdi, problem, *args, **kw)
+
+    monkeypatch.setattr(jfs, "build_level", shared_fine_level)
+    for name in ("_unit_recmap", "_transfer_slot_matrices"):
+        monkeypatch.setattr(jmg, name, functools.lru_cache(maxsize=None)(
+            getattr(jmg, name)))
     r = fs.solve_fictdom_structured(16, 1,
                                     cg_params=cg.CGParams(**_cgp(1e-12)),
                                     device="cpu")

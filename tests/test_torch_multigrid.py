@@ -2,13 +2,19 @@
 the transfer matrices, prolongation and restriction (and their adjoint
 identity), the Chebyshev smoother, the coarsest factor, and one V-cycle
 apply over the JAX package's own 16^2 and 8^2 levels, in the lean and in
-the full form."""
+the full form.
+
+The JAX package's transfer-matrix builders are pure functions of (hdi, h)
+that its eager multigrid setup calls again for every hierarchy; this
+module memoizes them (the same arrays, computed once), and runs the BLAS
+and torch thread pools single-threaded."""
 
 import functools
 
 import numpy as np
 import jax.numpy as jnp
 import pytest
+import threadpoolctl
 import torch
 
 from proton_tpu.core.ops import HHODegreeInfo as JHHODegreeInfo
@@ -46,10 +52,28 @@ def _systems(nf, nc, fbs):
             structured.make_structured_system(nc, nc, fbs, device=CPU))
 
 
-@functools.lru_cache(maxsize=None)
+@pytest.fixture(autouse=True, scope="module")
+def _memoized_jax_transfers_one_thread():
+    """Memoize the JAX package's _transfer_face_projectors, _unit_recmap
+    and _transfer_slot_matrices for this module (build_multigrid looks
+    them up as module globals), and keep BLAS and torch on one thread:
+    with a pool per core in every test worker, a dense eigh of a few
+    hundred rows takes seconds instead of milliseconds."""
+    with pytest.MonkeyPatch.context() as mp, \
+            threadpoolctl.threadpool_limits(1):
+        for name in ("_transfer_face_projectors", "_unit_recmap",
+                     "_transfer_slot_matrices"):
+            mp.setattr(jmg, name,
+                       functools.lru_cache(maxsize=None)(getattr(jmg, name)))
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        yield
+        torch.set_num_threads(threads)
+
+
 def _jax_mats(k):
     """The JAX package's transfer matrices of the coarse cell of side
-    1/8, computed once for the tests that need them."""
+    1/8 (memoized by the fixture above)."""
     return jmg._transfer_slot_matrices(JHHODegreeInfo(k + 1, k), 0.125,
                                        jnp.float64)
 

@@ -5,6 +5,7 @@ data, CG, and the end-to-end fictdom gates."""
 import numpy as np
 import jax.numpy as jnp
 import pytest
+import threadpoolctl
 import torch
 
 from proton_tpu.cut import fictdom_structured as jfs
@@ -16,6 +17,17 @@ from proton_tpu_torch.methods import cells_last, structured
 from proton_tpu_torch.solvers import cg
 
 CPU = torch.device("cpu")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """BLAS and torch on one thread: with a pool per core in every test
+    worker the cores are oversubscribed many times over."""
+    with threadpoolctl.threadpool_limits(1):
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        yield
+        torch.set_num_threads(threads)
 
 
 def _spd_cells(rng, n, C, shift):
