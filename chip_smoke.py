@@ -67,7 +67,31 @@ poisson.py, obstacle.py; no kernel of its own):
 15. [polymesh] brick meshes (6-gons, with 4- and 5-gons at the boundary)
     of 16^2, 256^2 and 512^2 bricks loaded with load_poly_mesh and solved
     at HHODegreeInfo(k, k), k = 0, 1: the 16^2 mesh equal to the JAX
-    package's CPU numbers, the L2 orders from 256^2 to 512^2.
+    package's CPU numbers, the L2 orders from 256^2 to 512^2;
+
+the generic cut path (cut/classify.cut_preprocess, cut/fictdom.py,
+cut/interface_problem.py, cut/agglomerate.py, apps/cuthho_square.py; no
+kernel of its own):
+
+16. [cut_preprocess] the generic classification of every cell of the
+    1024^2 mesh against the band one (codes and moved points equal), the
+    agglomeration-detection branch and make_neighbors_info at 1024^2;
+17. [fictdom_generic] Jacobi PCG on the full system, tol 1e-12: the JAX
+    package's CPU numbers at 16^2, 32^2 k=1 and 16^2 k=2, then 128^2,
+    256^2, 512^2 k=1 (H1 order 256 -> 512 in [1.8, 2.2]) and, at 256^2,
+    H1 within 1e-6 of the structured solve of the same problem;
+18. [interface] condensed + uniform MG + cut-band Schwarz, tol 1e-9: the
+    JAX gates at 16^2, 32^2 (k=0, 1) and 16^2 k=2, the full system
+    against the condensed one at 16^2, kappa_2 = 3 on the block-Jacobi
+    branch at 64^2, then 256^2, 512^2, 1024^2 k=1 (H1 order 512 -> 1024
+    in [1.8, 2.2]) and torch.profiler over 20 of its CG iterations at
+    1024^2 (one scalar read per iteration, no host-to-device copy);
+19. [agglomerate] the merge at 128^2 and 256^2 (seconds by part), plain
+    classification and the fictdom solve on the merged mesh: area 1 to
+    1e-12, no badly cut cell left, H1 order above 1.6;
+20. [cuthho_square] the app with -f -i at the BASELINE configuration
+    (64^2, k=1) against the JAX app's errors, then -A -f -d at 16^2 in a
+    temporary directory.
 
 Any failed check raises, so the script exits non-zero and prints no
 result. Without a CUDA device it exits non-zero before any phase. The
@@ -85,6 +109,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 # (iterations, H1) of the JAX package on the CPU in float64 at 32^2 k=1,
@@ -146,6 +171,31 @@ OBSTACLE_TABLE = {0: {8: 2.26205, 16: 1.2833, 32: 0.650286, 64: 0.326314,
 # 5.099341984178092e-05 (k=1), orders 1.99 and 2.99.
 BRICK16_GATES = {0: (0.010804982244290178, 79),
                  1: (0.00040385578148711607, 195)}
+
+# The generic cut path (phases 16-20). The JAX package on the CPU in
+# float64, (CG iterations, H1 error):
+#   proton_tpu.cut.fictdom.run_fictdom(N, k) (Jacobi PCG, tol 1e-12) and
+#   proton_tpu.cut.interface_problem.run_interface(N, k) (condensed +
+#   uniform MG + cut-band Schwarz, tol 1e-9), with their defaults.
+FICTDOM_GATES = {(16, 1): (333, 4.434838976686683e-3),
+                 (32, 1): (1115, 1.1344765305280414e-3),
+                 (16, 2): (1306, 1.7830932491347257e-4)}
+INTERFACE_GATES = {(16, 0): (23, 0.1792588524007485),
+                   (16, 1): (20, 8.071813328813876e-3),
+                   (32, 0): (34, 8.968602232006512e-2),
+                   (32, 1): (27, 2.07579419658458e-3),
+                   (16, 2): (18, 2.705311510189856e-4)}
+# At 16^2 k=2 the fictdom Jacobi-PCG count moves with rounding of the
+# operator: the port's CG on the JAX package's local matrices (1.3e-12
+# relative from the port's) stops after 1,328 iterations, on its own
+# after 1,303, the JAX package's after 1,306 (CPU, float64). So k=2
+# counts are held to 2.5%, k=1 counts to 2.
+FICTDOM_K2_ITERATIONS = 0.025
+# The cuthho_square app at the BASELINE configuration (-M 64 -N 64 -k 1,
+# BASELINE.md:25-26): the JAX app's energy-norm errors of -i (39 CG
+# iterations) and -f (2,754), CPU, float64.
+APP_GATES_64 = {"interface": 5.2344414006883e-4,
+                "fictdom": 2.913400189898017e-4}
 
 # Phase 13: the full and the condensed 1024^2 k=1 solutions may differ by
 # this share of max|u|. Both stop at ||r|| < 1e-12 ||b||, which bounds the
@@ -509,6 +559,19 @@ def check_lean_launches(what: str, cells, displaced_cells) -> None:
           f"counts {displaced_cells}")
 
 
+def host_traffic(events, iterations: int, labels=()):
+    """(scalar reads per iteration, host-to-device copies) of a
+    torch.profiler window over `iterations` CG iterations."""
+    from torch.autograd import DeviceType
+
+    cpu_side = {e.key: e for e in events if e.device_type == DeviceType.CPU}
+    reads = cpu_side["aten::_local_scalar_dense"].count / iterations \
+        if "aten::_local_scalar_dense" in cpu_side else 0.0
+    h2d = sum(e.count for e in events if e.device_type == DeviceType.CUDA
+              and e.key not in labels and "HtoD" in e.key)
+    return reads, h2d
+
+
 def profile_mg(N: int, k: int, iterations: int, device: str = "cuda") -> None:
     """torch.profiler over `iterations` multigrid-PCG iterations of the
     lean N^2 system. Every callable of the V-cycle is labelled with its
@@ -581,11 +644,9 @@ def profile_mg(N: int, k: int, iterations: int, device: str = "cuda") -> None:
     events = prof.key_averages()
     cpu_side = {e.key: e for e in events if e.device_type == DeviceType.CPU}
     per_it = lambda v: v / iterations
-    scalar_reads = per_it(cpu_side["aten::_local_scalar_dense"].count) \
-        if "aten::_local_scalar_dense" in cpu_side else 0.0
+    scalar_reads, h2d = host_traffic(events, iterations, labels)
     kernels = [e for e in events if e.device_type == DeviceType.CUDA
                and e.key not in labels]
-    h2d = sum(e.count for e in kernels if "HtoD" in e.key)
     # run() reads one scalar per iteration (the exit test); the vcycle
     # runs once less than the iterations (none after the last test)
     line("profile_mg_host", N=N, k=k, iterations=iterations,
@@ -926,6 +987,358 @@ def polymesh_bricks() -> None:
         check(order >= least, f"bricks k={k}: L2 order {order} < {least}")
 
 
+def _peak_gb() -> float:
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
+def cut_preprocess_phase() -> None:
+    """Phase 16: the generic cut_preprocess on every cell of the 1024^2
+    mesh against the band-restricted cut_preprocess_band (the same
+    classification and the same moved points), the agglomeration
+    detection branch and make_neighbors_info at 1024^2."""
+    from proton_tpu_torch.core.mesh import make_poly_mesh
+    from proton_tpu_torch.cut import classify
+    from proton_tpu_torch.cut.fictdom_structured import default_problem
+
+    ls = default_problem().ls
+    mesh = make_poly_mesh(Nx=1024, Ny=1024, device="cuda")
+    torch.cuda.synchronize()
+    times = {}
+    out = {}
+    for name, fn in (("generic", classify.cut_preprocess),
+                     ("band", classify.cut_preprocess_band)):
+        t0 = time.perf_counter()
+        out[name] = fn(mesh, ls, 4)
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+    (mg, cg_), (mb, cb) = out["generic"], out["band"]
+    point_diff = float((mg.points - mb.points).abs().max())
+    cut = cg_.cell_loc == classify.LOC_CUT
+    iface_diff = float((cg_.interface[cut] - cb.interface[cut]).abs().max())
+    line("cut_preprocess", N=1024, generic_s=times["generic"],
+         band_s=times["band"], cut_cells=int(cut.sum()),
+         distorted=int(cg_.distorted.sum()), max_abs_point_diff=point_diff,
+         max_abs_interface_diff=iface_diff)
+    for f in ("cell_loc", "face_loc", "node_loc", "distorted"):
+        check(torch.equal(getattr(cg_, f), getattr(cb, f)),
+              f"1024^2: generic and band {f} differ")
+    check(point_diff == 0.0, f"1024^2: moved points differ by {point_diff}")
+    del out, mg, mb, cg_, cb
+
+    t0 = time.perf_counter()
+    ma, ca = classify.cut_preprocess(mesh, ls, 4, agglomeration=True)
+    torch.cuda.synchronize()
+    agglo_s = time.perf_counter() - t0
+    counts = torch.bincount(ca.agglo_set.to(torch.int64), minlength=4)
+    t0 = time.perf_counter()
+    nbrs = classify.make_neighbors_info(mesh)
+    nbr_s = time.perf_counter() - t0
+    line("cut_preprocess_agglomeration", N=1024, seconds=agglo_s,
+         agglo_undef=int(counts[0]), agglo_ok=int(counts[1]),
+         agglo_ko_neg=int(counts[2]), agglo_ko_pos=int(counts[3]),
+         neighbors_s=nbr_s, neighbors_shape=tuple(nbrs.shape))
+    n_cut = int((ca.cell_loc == classify.LOC_CUT).sum())
+    check(int(counts[1:].sum()) == n_cut,
+          "every cut cell must get an agglo set, and no other cell")
+    check(bool(torch.equal(ma.points, mesh.points)),
+          "the agglomeration branch must not move nodes")
+    # interior cells have 8 point neighbours, corner cells 3
+    per_cell = (nbrs >= 0).sum(1)
+    check(int(per_cell.max()) == 8 and int(per_cell.min()) == 3,
+          "make_neighbors_info: neighbour counts")
+    del ma, ca, nbrs, mesh
+    torch.cuda.empty_cache()
+
+
+def fictdom_generic(N: int, k: int, **kw):
+    """run_fictdom(N, k) on the card with its numbers printed; checked
+    converged with a finite H1 error."""
+    from proton_tpu_torch.cut import fictdom
+    from proton_tpu_torch.solvers import cg
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t, t0 = {}, time.perf_counter()
+    r = fictdom.run_fictdom(N, k, device="cuda", timings=t, **kw)
+    wall = time.perf_counter() - t0
+    line("fictdom_generic", N=N, k=k, exit=r.exit_reason,
+         iterations=r.iterations, h1=r.h1_error,
+         ms_per_iteration=1e3 * t["cg_s"] / max(r.iterations, 1),
+         wall_s=wall, peak_gb=_peak_gb(),
+         **{key: round(v, 4) for key, v in t.items()})
+    check(r.exit_reason == cg.CONVERGED, f"fictdom {N}^2 k={k}: exit "
+          f"{r.exit_reason}")
+    check(math.isfinite(r.h1_error), f"fictdom {N}^2 k={k}: H1")
+    return r
+
+
+def fictdom_generic_phase() -> None:
+    """Phase 17: the generic fictitious-domain solve (Jacobi PCG on the
+    full cell + face system, tol 1e-12): the JAX gates at 16^2, 32^2 k=1
+    and 16^2 k=2, then 128^2 ... 512^2 k=1 with the H1 order from 256^2,
+    and at 256^2 against the structured solve of the same problem (the
+    same discretization: on the CPU at 32^2 the two JAX paths agree to
+    1.7e-9 relative in H1)."""
+    from proton_tpu_torch.cut import fictdom_structured as fs
+    from proton_tpu_torch.solvers import cg
+
+    for (n, k), (ref_its, ref_h1) in FICTDOM_GATES.items():
+        r = fictdom_generic(n, k)
+        slack = 2 if k < 2 else FICTDOM_K2_ITERATIONS * ref_its
+        line("fictdom_gate", N=n, k=k, iterations=r.iterations,
+             ref_iterations=ref_its, h1=r.h1_error, ref_h1=ref_h1)
+        check(abs(r.iterations - ref_its) <= slack,
+              f"fictdom {n}^2 k={k}: iterations")
+        check(math.isclose(r.h1_error, ref_h1,
+                           rel_tol=1e-6 if k < 2 else 1e-4),
+              f"fictdom {n}^2 k={k}: H1")
+    h1 = {}
+    for n in (128, 256, 512):
+        h1[n] = fictdom_generic(n, 1).h1_error
+    order = math.log2(h1[256] / h1[512])
+    line("fictdom_generic_order", h1_256=h1[256], h1_512=h1[512],
+         order=order)
+    check(1.8 <= order <= 2.2, f"fictdom H1 order {order} outside "
+          "[1.8, 2.2]")
+    params = cg.CGParams(convergence_threshold=1e-12,
+                         divergence_threshold=1e8, max_iter=200000,
+                         apply_preconditioner=True)
+    t0 = time.perf_counter()
+    s = fs.solve_fictdom_structured(256, 1, fitted="full",
+                                    precond="block_jacobi",
+                                    cg_params=params, device="cuda")
+    line("fictdom_generic_vs_structured", N=256, h1_generic=h1[256],
+         h1_structured=s.h1_error, iterations_structured=s.iterations,
+         rel=abs(h1[256] - s.h1_error) / s.h1_error,
+         seconds_structured=time.perf_counter() - t0)
+    check(math.isclose(h1[256], s.h1_error, rel_tol=1e-6),
+          "256^2: generic and structured fictdom H1 differ")
+    del s
+    torch.cuda.empty_cache()
+
+
+def interface_solve(N: int, k: int, **kw):
+    """run_interface(N, k) on the card with its numbers printed; checked
+    converged with a finite H1 error."""
+    from proton_tpu_torch.cut import interface_problem as ip
+    from proton_tpu_torch.solvers import cg
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t, t0 = {}, time.perf_counter()
+    r = ip.run_interface(N, k, device="cuda", timings=t, **kw)
+    wall = time.perf_counter() - t0
+    line("interface", N=N, k=k, exit=r.exit_reason,
+         iterations=r.iterations, h1=r.h1_error,
+         ms_per_iteration=1e3 * t["cg_s"] / max(r.iterations, 1),
+         wall_s=wall, peak_gb=_peak_gb(),
+         **{key: v for key, v in kw.items() if key != "parms"},
+         **{key: round(v, 4) for key, v in t.items()})
+    check(r.exit_reason == cg.CONVERGED, f"interface {N}^2 k={k}: exit "
+          f"{r.exit_reason}")
+    check(math.isfinite(r.h1_error), f"interface {N}^2 k={k}: H1")
+    return r
+
+
+def profile_interface(N: int, k: int, iterations: int) -> None:
+    """torch.profiler over `iterations` PCG iterations of the condensed
+    N^2 interface system under its MG preconditioner: ms per iteration,
+    kernel launches per iteration, the device's busy share, and the
+    scalar reads (one: the exit test) and host-to-device copies (none)
+    per iteration."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from proton_tpu_torch.core.mesh import make_poly_mesh
+    from proton_tpu_torch.core.ops import HHODegreeInfo
+    from proton_tpu_torch.cut import classify, interface_problem as ip
+    from proton_tpu_torch.cut.fictdom_structured import default_problem
+    from proton_tpu_torch.solvers import cg
+
+    p, hdi, parms = default_problem(), HHODegreeInfo(k + 1, k), \
+        ip.InterfaceParams()
+    mesh, cd = classify.cut_preprocess(
+        make_poly_mesh(Nx=N, Ny=N, device="cuda"), p.ls, 4)
+    asm = ip.assemble_interface(mesh, cd, p.ls, hdi, p.rhs_fun, p.sol_fun,
+                                parms)
+    fsys = ip.condensed_face_system(mesh, asm, hdi, parms)
+    check(fsys.preconditioner == "mg", "the interface MG branch")
+
+    def run(n):
+        # tol 0 never converges: exactly n iterations, exit 2
+        return cg.conjugated_gradient(fsys.apply, fsys.rhs, None,
+                                      cg.CGParams(0.0, 1e8, n - 2, True),
+                                      precond=fsys.precond)
+
+    run(3)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = run(iterations)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    check(res.iterations == iterations, "profile window length")
+    events = prof.key_averages()
+    reads, h2d = host_traffic(events, iterations)
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    device_us = sum(e.self_device_time_total for e in kernels)
+    line("profile_interface", N=N, k=k, iterations=iterations,
+         ms_per_iteration=1e3 * wall / iterations,
+         scalar_reads_per_iteration=reads, host_to_device_copies=h2d,
+         kernel_launches_per_iteration=sum(e.count for e in kernels) /
+         iterations,
+         device_us_per_iteration=device_us / iterations,
+         device_busy_share=device_us / 1e6 / wall)
+    check(reads <= 1.0, f"{reads} scalar reads per interface iteration")
+    check(h2d == 0, f"{h2d} host-to-device copies in the interface window")
+    del asm, fsys, mesh, cd
+    torch.cuda.empty_cache()
+
+
+def interface_phase() -> None:
+    """Phase 18: the interface problem (condensed, uniform MG + cut-band
+    Schwarz, tol 1e-9): the JAX gates, condensed against the full system,
+    a kappa contrast on the block-Jacobi branch, then 256^2 ... 1024^2 k=1
+    with the H1 order from 512^2, and the host traffic of its CG loop."""
+    from proton_tpu_torch.cut import interface_problem as ip
+
+    for (n, k), (ref_its, ref_h1) in INTERFACE_GATES.items():
+        r = interface_solve(n, k)
+        line("interface_gate", N=n, k=k, iterations=r.iterations,
+             ref_iterations=ref_its, h1=r.h1_error, ref_h1=ref_h1)
+        check(abs(r.iterations - ref_its) <= 2,
+              f"interface {n}^2 k={k}: iterations")
+        check(math.isclose(r.h1_error, ref_h1,
+                           rel_tol=1e-6 if k < 2 else 1e-4),
+              f"interface {n}^2 k={k}: H1")
+        if (n, k) == (16, 1):
+            cond = r
+    full = interface_solve(16, 1, condensed=False)
+    diff = float((full.x - cond.x).abs().max())
+    xmax = float(cond.x.abs().max())
+    line("interface_full_vs_condensed", N=16, k=1,
+         iterations_full=full.iterations, max_abs_diff=diff,
+         max_abs_x=xmax)
+    check(diff <= 1e-7 * xmax, f"16^2: full and condensed x differ by {diff}")
+    contrast = interface_solve(64, 1, parms=ip.InterfaceParams(1.0, 3.0))
+    line("interface_contrast", N=64, kappa_1=1.0, kappa_2=3.0,
+         h1=contrast.h1_error, iterations=contrast.iterations)
+    h1 = {}
+    for n in (256, 512, 1024):
+        h1[n] = interface_solve(n, 1).h1_error
+    order = math.log2(h1[512] / h1[1024])
+    line("interface_order", h1_256=h1[256], h1_512=h1[512],
+         h1_1024=h1[1024], order_256_512=math.log2(h1[256] / h1[512]),
+         order_512_1024=order)
+    check(1.8 <= order <= 2.2, f"interface H1 order {order} outside "
+          "[1.8, 2.2]")
+    profile_interface(1024, 1, iterations=20)
+
+
+def agglomerate_phase() -> None:
+    """Phase 19: agglomerate at 128^2 and 256^2 (merge and host rebuild
+    timed), plain classification of the merged mesh and the generic
+    fictdom solve on it: no KO cell left, the area conserved, the H1
+    order above 1.6."""
+    from proton_tpu_torch.core.geometry import cell_geometry
+    from proton_tpu_torch.core.mesh import make_poly_mesh
+    from proton_tpu_torch.cut import agglomerate as agg, classify, fictdom
+    from proton_tpu_torch.cut.fictdom_structured import default_problem
+    from proton_tpu_torch.solvers import cg
+
+    p = default_problem()
+    h1 = {}
+    for n in (128, 256):
+        mesh = make_poly_mesh(Nx=n, Ny=n, device="cuda")
+        ta, t0 = {}, time.perf_counter()
+        merged, groups = agg.agglomerate(mesh, p.ls, timings=ta)
+        torch.cuda.synchronize()
+        agg_s = time.perf_counter() - t0
+        neg, pos, loc, *_ = agg._side_measures(merged, p.ls)
+        meas = cell_geometry(merged).meas
+        area = float(meas.sum())
+        meas = meas.cpu().numpy()
+        cut = loc == classify.LOC_CUT
+        frac = float((np.minimum(neg, pos)[cut] / meas[cut]).min())
+        t0 = time.perf_counter()
+        m3, cd = classify.cut_preprocess(merged, p.ls, 4,
+                                         displacement=False)
+        torch.cuda.synchronize()
+        classify_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        t = {}
+        r = fictdom.solve_fictdom(m3, cd, p.ls, 1, p.rhs_fun, p.sol_fun,
+                                  p.sol_grad, timings=t)
+        h1[n] = r.h1_error
+        line("agglomerate", N=n, cells=merged.num_cells, merges=groups,
+             max_pts=merged.max_pts, area=area, min_side_fraction=frac,
+             agglomerate_s=agg_s,
+             **{f"agglomerate_{key}": round(v, 4) for key, v in ta.items()},
+             classify_s=classify_s, iterations=r.iterations,
+             h1=r.h1_error, exit=r.exit_reason,
+             ms_per_iteration=1e3 * t["cg_s"] / max(r.iterations, 1),
+             peak_gb=_peak_gb(), **{key: round(v, 4) for key, v in t.items()})
+        check(merged.num_cells == n * n - groups and merged.max_pts > 4,
+              f"agglomerate {n}^2: cell count")
+        check(abs(area - 1.0) < 1e-12, f"agglomerate {n}^2: area {area}")
+        check(frac > 0.09, f"agglomerate {n}^2: a KO cell is left "
+              f"(side fraction {frac})")
+        check(r.exit_reason == cg.CONVERGED and math.isfinite(r.h1_error),
+              f"agglomerate {n}^2: fictdom solve")
+        del mesh, merged, m3, cd, r
+        torch.cuda.empty_cache()
+    order = math.log2(h1[128] / h1[256])
+    line("agglomerate_order", h1_128=h1[128], h1_256=h1[256], order=order)
+    check(order > 1.6, f"agglomerated fictdom H1 order {order} <= 1.6")
+
+
+def cuthho_square_phase() -> None:
+    """Phase 20: the cuthho_square app on the card at the BASELINE
+    configuration (-f -i, 64^2, k=1) against the JAX app's errors, then
+    -A -f -d at 16^2 in a temporary directory (mesh info, point clouds;
+    without matplotlib the plots are skipped, as in the JAX app)."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    from proton_tpu_torch.apps import cuthho_square
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cuthho_square.main(["-f", "-i", "-M", "64", "-N", "64",
+                                 "-k", "1"])
+    seconds = time.perf_counter() - t0
+    print(buf.getvalue(), end="", flush=True)
+    errors = [float(ln.split()[-1]) for ln in buf.getvalue().splitlines()
+              if "Energy-norm absolute error" in ln]
+    check(rc == 0 and len(errors) == 2, "cuthho_square -f -i: output")
+    got = dict(zip(("interface", "fictdom"), errors))
+    line("cuthho_square", N=64, k=1, seconds=seconds,
+         **{f"h1_{key}": v for key, v in got.items()},
+         **{f"ref_{key}": v for key, v in APP_GATES_64.items()})
+    for key, ref in APP_GATES_64.items():
+        check(math.isclose(got[key], ref, rel_tol=1e-6),
+              f"cuthho_square 64^2 -{key[0]}: H1 {got[key]}, JAX {ref}")
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            rc = cuthho_square.main(["-A", "-f", "-d", "-M", "16", "-N",
+                                     "16", "-k", "1"])
+            files = sorted(os.listdir(tmp))
+        finally:
+            os.chdir(cwd)
+    line("cuthho_square_debug", N=16, files=",".join(files))
+    check(rc == 0 and {"cuthho_meshinfo.vtk", "cuthho_meshinfo.npz",
+                       "fictdom_uT.dat", "fictdom_Ru.dat",
+                       "fictdom_diff.dat"} <= set(files),
+          "cuthho_square -A -f -d: files")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1130,6 +1543,15 @@ def main() -> int:
     obstacle_table()
     polymesh_bricks()
     line("uncut_total", seconds=round(time.perf_counter() - t_uncut, 3))
+
+    # 16-20. the generic cut path
+    t_cut = time.perf_counter()
+    cut_preprocess_phase()
+    fictdom_generic_phase()
+    interface_phase()
+    agglomerate_phase()
+    cuthho_square_phase()
+    line("cut_total", seconds=round(time.perf_counter() - t_cut, 3))
 
     line("total", seconds=round(time.perf_counter() - t_start, 3))
     print(smi, flush=True)

@@ -3,8 +3,9 @@ arrays: any object with the field names of proton_tpu's ``Mesh`` (the
 generated and the loaded ones), ``CellGeom``, ``DofMap``,
 ``FaceIncidence``, ``CondensedSystem``, ``PoissonSolution``,
 ``ObstacleResult``, ``CutData``, ``CutCellBatch``, ``CondensedCL``,
-``UniformCondCL`` or ``GridVecCL`` (``np.asarray`` is applied to each
-field), and the per-level data of its multigrid. The tests use
+``UniformCondCL``, ``GridVecCL``, ``InterfaceDofMap``, ``FictdomResult``
+or ``InterfaceResult`` (``np.asarray`` is applied to each field), and the
+per-level data of its multigrid. The tests use
 these so that each stage of the two packages runs from identical inputs.
 This module imports neither JAX nor proton_tpu."""
 
@@ -16,6 +17,8 @@ import torch
 from .core.geometry import CellGeom
 from .core.mesh import Mesh
 from .cut.classify import CutData
+from .cut.fictdom import FictdomResult
+from .cut.interface_problem import InterfaceDofMap, InterfaceResult
 from .cut.methods import CutCellBatch
 from .methods.assembly import DofMap, FaceIncidence
 from .methods.cells_last import CondensedCL, GridVecCL, UniformCondCL
@@ -91,6 +94,29 @@ def cut_data(c, device) -> CutData:
 
 def cut_cell_batch(b, device) -> CutCellBatch:
     return _fields(CutCellBatch, b, device, geom=cell_geom(b.geom, device))
+
+
+def interface_dofmap(dm, device) -> InterfaceDofMap:
+    return InterfaceDofMap(**{f: tensor(getattr(dm, f), device) for f in (
+        "asm_uncut", "asm_cut", "uncut_ids", "cut_ids", "dirichlet_uncut",
+        "cell_table", "face_table", "face_is_cut")}, cbs=dm.cbs, fbs=dm.fbs,
+        num_all_cells=dm.num_all_cells, n_dofs=dm.n_dofs)
+
+
+def fictdom_result(r, device) -> FictdomResult:
+    return FictdomResult(
+        x=tensor(r.x, device), local=tensor(r.local, device),
+        h1_error=float(r.h1_error), iterations=int(r.iterations),
+        exit_reason=int(r.exit_reason),
+        min_eigs=None if r.min_eigs is None else tensor(r.min_eigs, device),
+        oper_cut=None if r.oper_cut is None else tensor(r.oper_cut, device))
+
+
+def interface_result(r, device) -> InterfaceResult:
+    return InterfaceResult(
+        x=tensor(r.x, device), local_neg=tensor(r.local_neg, device),
+        local_pos=tensor(r.local_pos, device), h1_error=float(r.h1_error),
+        iterations=int(r.iterations), exit_reason=int(r.exit_reason))
 
 
 def condensed_cl(c, device) -> CondensedCL:

@@ -41,8 +41,13 @@ def polygon_barycenter(pts):
 
 
 def polygon_measure(pts):
-    """Polygon area as the sum of |fan triangle| areas."""
-    return torch.sum(torch.abs(_fan_dets(pts)), dim=-1)
+    """Polygon area: |sum of the signed fan triangle areas| (the shoelace
+    formula), right for every simple polygon. The JAX package sums the
+    |fan triangle| areas instead; the two agree on convex polygons to the
+    last bit, but the JAX sum overcounts a non-convex polygon whose fan
+    from its first point folds over, as do the L-shaped cells that
+    cut/agglomerate.py merges from 128^2 on."""
+    return torch.abs(torch.sum(_fan_dets(pts), dim=-1))
 
 
 def polygon_diameter(pts):

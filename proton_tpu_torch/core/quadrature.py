@@ -178,3 +178,16 @@ def face_rule(fp0, fp1, degree: int) -> QuadRule:
     pts = (0.5 * (1 - t)[:, None] * fp0[..., None, :] +
            0.5 * (1 + t)[:, None] * fp1[..., None, :])
     return QuadRule(pts, 0.5 * meas[..., None] * ww)
+
+
+def bilinear_ref_to_phys(pts4, ref_pts):
+    """The quad reference transform (reference_transform::ref_to_phys,
+    quadratures.hpp:274-308): points of [-1,1]^2 through the bilinear map
+    of each cell. pts4 [..., 4, 2], ref_pts [R, 2] -> [..., R, 2]."""
+    xi = ref_pts[..., 0]
+    eta = ref_pts[..., 1]
+    s = torch.stack([0.25 * (1 - xi) * (1 - eta),
+                     0.25 * (1 + xi) * (1 - eta),
+                     0.25 * (1 + xi) * (1 + eta),
+                     0.25 * (1 - xi) * (1 + eta)], dim=-1)     # [R, 4]
+    return torch.einsum("rk,...kx->...rx", s, pts4)

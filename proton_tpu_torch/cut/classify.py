@@ -1,6 +1,9 @@
-"""Level-set cut classification, band-restricted displacement path (JAX
-counterpart: proton_tpu/cut/classify.py; reference
-cuthho_geom.hpp:68-673).
+"""Level-set cut classification (JAX counterpart:
+proton_tpu/cut/classify.py; reference cuthho_geom.hpp:68-673): the
+generic pipeline on any mesh (``cut_preprocess``: node displacement,
+agglomeration detection or plain classification) and the
+band-restricted displacement path of the generated mesh
+(``cut_preprocess_band``).
 
 Each stage is one batched tensor computation producing parallel arrays.
 Location codes are int8 and masks bool, as in the JAX package, so
@@ -22,9 +25,13 @@ from ..core.geometry import cell_points
 LOC_NEG = 0
 LOC_POS = 1
 LOC_CUT = 2
+LOC_UNDEF = 3
 
-# cell_agglo_set (cuthho_mesh.hpp:38-43)
+# cell_agglo_set (cuthho_mesh.hpp:38-43), encoded as in output_mesh_info
 AGGLO_UNDEF = 0
+AGGLO_OK = 1
+AGGLO_KO_NEG = 2
+AGGLO_KO_POS = 3
 
 
 @dataclasses.dataclass(frozen=True)
@@ -220,17 +227,123 @@ def refine_interface(mesh, phi, cells: CellCuts, levels: int):
     return pts
 
 
-def _preprocess_core(mesh, phi, levels: int):
-    """Displacement path of the preprocessing pipeline: detect nodes and
-    faces, move nodes, re-detect faces on the moved points, detect cells,
-    refine the interface. Returns (points', CutData, concave_any, n_bad)."""
+def detect_cell_agglo_set(mesh, phi, fc: FaceCuts, node_loc, cell_loc):
+    """Classify bad cuts against the 6 quad cut configurations with
+    cut-fraction threshold 0.3 (detect_cell_agglo_set,
+    cuthho_geom.hpp:163-273). Quad-only like the reference. Returns [C]
+    int8 AGGLO_* codes."""
+    if mesh.max_pts != 4:
+        raise ValueError("agglomeration sets work only on quads for now")
+    threshold = 0.3
+    pts = cell_points(mesh)                             # [C, 4, 2]
+    floc = fc.loc[mesh.cell_faces]                      # [C, 4]
+    fisect = fc.isect[mesh.cell_faces]                  # [C, 4, 2]
+    fp = mesh.points[mesh.face_ptids[mesh.cell_faces]]  # [C, 4, 2, 2]
+    fmeas = torch.linalg.vector_norm(fp[:, :, 1] - fp[:, :, 0], dim=-1)
+    nloc = node_loc[mesh.cell_ptids]                    # [C, 4]
+    cut_f = floc == LOC_CUT
+
+    def frac(n, f):
+        """Distance of node n to the crossing on face f, over |f|."""
+        return torch.linalg.vector_norm(pts[:, n] - fisect[:, f],
+                                        dim=-1) / fmeas[:, f]
+
+    def codes(ok, ko_neg):
+        return torch.where(ok, AGGLO_OK,
+                           torch.where(ko_neg, AGGLO_KO_NEG, AGGLO_KO_POS))
+
+    agglo = torch.full((mesh.num_cells,), AGGLO_UNDEF, dtype=torch.int64,
+                       device=pts.device)
+    # single-node cases: faces (i, i+1) both cut -> corner node n = i+1
+    # (cuthho_geom.hpp:184-251)
+    for i in range(4):
+        n = (i + 1) % 4
+        fire = cut_f[:, i] & cut_f[:, n]
+        ok = torch.minimum(frac(n, i), frac(n, n)) > threshold
+        agglo = torch.where(fire, codes(ok, nloc[:, n] == LOC_NEG), agglo)
+
+    # double-node cases: opposite faces (0,2) and (1,3) both cut
+    # (cuthho_geom.hpp:212-240,253-257)
+    for f1, f2 in ((0, 2), (1, 3)):
+        n1, n2 = f1, (f2 + 1) % 4
+        fire = cut_f[:, f1] & cut_f[:, f2]
+        da, db = frac(n1, f1), frac(n2, f2)
+        m1 = torch.maximum(da, db)
+        m2 = torch.maximum(1 - da, 1 - db)
+        ok = torch.minimum(m1, m2) > threshold
+        ko_neg = torch.where(nloc[:, n1] == LOC_NEG, m1 <= threshold,
+                             m2 <= threshold)
+        agglo = torch.where(fire, codes(ok, ko_neg), agglo)
+    return agglo.to(torch.int8)
+
+
+def make_neighbors_info(mesh, max_neighbors: int = 8):
+    """Point-sharing cell neighbor lists [C, max_neighbors], -1 padded,
+    ascending (make_neighbors_info, cuthho_geom.hpp:343-380), through the
+    point -> cell incidence transpose instead of the reference's O(C^2)
+    pair scan. NumPy on the host; the result is on the mesh's device."""
+    cp = mesh.cell_ptids.cpu().numpy()
+    npts = mesh.cell_npts.cpu().numpy()
+    C, Pmax = cp.shape
+    valid = np.arange(Pmax)[None, :] < npts[:, None]
+    p_flat = cp[valid].astype(np.int64)
+    c_flat = np.broadcast_to(np.arange(C)[:, None], (C, Pmax))[valid]
+
+    # point -> cells padded table [P, M] via grouped ranks
+    order = np.argsort(p_flat, kind="stable")
+    ps, cs = p_flat[order], c_flat[order]
+    first = np.concatenate([[True], ps[1:] != ps[:-1]])
+    gstart = np.maximum.accumulate(np.where(first, np.arange(len(ps)), 0))
+    rank = np.arange(len(ps)) - gstart
+    M = int(rank.max()) + 1 if len(ps) else 1
+    p2c = -np.ones((mesh.num_points, M), dtype=np.int64)
+    p2c[ps, rank] = cs
+
+    # candidates per cell: the cells of each of its points, self dropped,
+    # duplicates removed, ascending
+    big = np.iinfo(np.int64).max
+    cand = p2c[cp].reshape(C, Pmax * M)
+    cand = np.where(cand == np.arange(C)[:, None], -1, cand)
+    cand.sort(axis=1)
+    dup = np.concatenate([np.zeros((C, 1), bool),
+                          cand[:, 1:] == cand[:, :-1]], axis=1)
+    cand = np.where(dup | (cand < 0), big, cand)
+    cand.sort(axis=1)
+    out = cand[:, :max_neighbors]
+    out = np.where(out == big, -1, out)
+    return torch.as_tensor(out, device=mesh.points.device)
+
+
+def _preprocess_core(mesh, phi, levels: int, agglomeration: bool = False,
+                     displacement: bool = True):
+    """The preprocessing pipeline. Displacement path (default): detect
+    nodes and faces, move nodes, re-detect faces on the moved points,
+    detect cells, refine the interface. Agglomeration path: detect nodes,
+    faces and cells on the input points, then the agglo sets. Plain
+    classification (``displacement=False``, used on agglomerated meshes):
+    detect on the input points. Returns (points', CutData, concave_any,
+    n_bad) with the two flags read on the host."""
     node_loc = detect_node_position(mesh, phi)
     fcuts = detect_cut_faces(mesh, phi)
-    mv = move_nodes(mesh, fcuts)
-    concave_any = bool(torch.any(mv.concave))
-    mesh = mesh.with_points(mv.points)
-    fcuts = detect_cut_faces(mesh, phi)
-    ccuts = detect_cut_cells(mesh, phi, fcuts)
+    dev = node_loc.device
+    distorted = torch.zeros((mesh.num_cells,), dtype=torch.bool, device=dev)
+    agglo = torch.full((mesh.num_cells,), AGGLO_UNDEF, dtype=torch.int8,
+                       device=dev)
+    concave_any = False
+
+    if agglomeration:
+        ccuts = detect_cut_cells(mesh, phi, fcuts)
+        agglo = detect_cell_agglo_set(mesh, phi, fcuts, node_loc, ccuts.loc)
+    elif not displacement:
+        ccuts = detect_cut_cells(mesh, phi, fcuts)
+    else:
+        mv = move_nodes(mesh, fcuts)
+        concave_any = bool(torch.any(mv.concave))
+        mesh = mesh.with_points(mv.points)
+        distorted = mv.distorted
+        fcuts = detect_cut_faces(mesh, phi)   # re-run on moved points
+        ccuts = detect_cut_cells(mesh, phi, fcuts)
+
     n_bad = int(torch.sum((ccuts.cut_count != 0) & (ccuts.cut_count != 2)))
     iface = refine_interface(mesh, phi, ccuts, levels)
     cutdata = CutData(
@@ -240,11 +353,36 @@ def _preprocess_core(mesh, phi, levels: int):
         face_node_inside=fcuts.node_inside,
         cell_loc=ccuts.loc,
         interface=iface,
-        agglo_set=torch.full((mesh.num_cells,), AGGLO_UNDEF,
-                             dtype=torch.int8, device=node_loc.device),
-        distorted=mv.distorted,
+        agglo_set=agglo,
+        distorted=distorted,
     )
     return mesh.points, cutdata, concave_any, n_bad
+
+
+def _check_flags(concave_any: bool, n_bad: int) -> None:
+    """The reference's throws (cuthho_geom.hpp:335-336, :538-540)."""
+    if concave_any:
+        raise RuntimeError("concave poly generated by node displacement")
+    if n_bad != 0:
+        raise RuntimeError(f"invalid number of cuts in {n_bad} cell(s)")
+
+
+def cut_preprocess(mesh, phi, levels: int = 4, agglomeration: bool = False,
+                   displacement: bool = True):
+    """The level-set mesh preprocessing of the reference main
+    (cuthho_square.cpp:2035-2052) on every cell of any mesh.
+    Displacement path (default, -D): detect nodes and faces, move nodes,
+    re-detect faces, detect cells, refine the interface. Agglomeration
+    path (-A): detect nodes, faces and cells and the agglo sets
+    (detection only: the reference's merge is dead code; cut/agglomerate.py
+    merges). ``displacement=False``: plain classification.
+
+    Returns (mesh', CutData). Raises on concave cells or invalid cut
+    counts, one scalar read each."""
+    points, cutdata, concave_any, n_bad = _preprocess_core(
+        mesh, phi, levels, agglomeration, displacement)
+    _check_flags(concave_any, n_bad)
+    return mesh.with_points(points), cutdata
 
 
 def band_cell_ids(mesh, phi):
@@ -308,10 +446,7 @@ def cut_preprocess_band(mesh, phi, levels: int = 4):
         face_bnd=mesh.face_bnd[t(fsub)],
     )
     points2, sub_cut, concave_any, n_bad = _preprocess_core(sub, phi, levels)
-    if concave_any:
-        raise RuntimeError("concave poly generated by node displacement")
-    if n_bad != 0:
-        raise RuntimeError(f"invalid number of cuts in {n_bad} cell(s)")
+    _check_flags(concave_any, n_bad)
 
     face_loc[fsub] = sub_cut.face_loc.cpu().numpy()
     face_node_inside[fsub] = sub_cut.face_node_inside.cpu().numpy()

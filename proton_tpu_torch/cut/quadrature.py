@@ -12,6 +12,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..core.geometry import polygon_barycenter
@@ -101,6 +102,25 @@ def interface_rule(interface, side_bar, degree: int) -> QuadRule:
     Cc, R, n, _ = rule.pts.shape
     w = rule.w * int_sign[:, None, None]
     return QuadRule(rule.pts.reshape(Cc, R * n, 2), w.reshape(Cc, R * n))
+
+
+def make_test_points(cell_pts4, phi, side: int, N: int = 10):
+    """Reference-grid sample points of each (quad) cell filtered by side
+    (make_test_points, cuthho_geom.hpp:898-932): an (N+1)^2 grid mapped
+    through the bilinear reference transform, with an on-side mask instead
+    of a filtered list. cell_pts4 [..., 4, 2] -> (pts [..., (N+1)^2, 2],
+    mask [..., (N+1)^2])."""
+    t = np.linspace(-1.0, 1.0, N + 1)
+    XI, ETA = np.meshgrid(t, t)
+    xi = torch.as_tensor(XI.ravel(), dtype=cell_pts4.dtype,
+                         device=cell_pts4.device)
+    eta = torch.as_tensor(ETA.ravel(), dtype=cell_pts4.dtype,
+                          device=cell_pts4.device)
+    s = torch.stack([0.25 * (1 - xi) * (1 - eta), 0.25 * (1 + xi) * (1 - eta),
+                     0.25 * (1 + xi) * (1 + eta), 0.25 * (1 - xi) * (1 + eta)])
+    p = sum(cell_pts4[..., i, None, :] * s[i][:, None] for i in range(4))
+    v = phi(p)
+    return p, (v < 0) if side == LOC_NEG else (v > 0)
 
 
 def side_face_rule(face_pts, face_loc, face_isect, fnode0_loc, fnode1_loc,

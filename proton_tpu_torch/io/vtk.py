@@ -79,6 +79,27 @@ class VtkWriter:
                  **{f"nodal_{k}": v for k, v in self.nodal.items()})
 
 
+def output_mesh_info(mesh, cutdata, ls, basename: str = "cuthho_meshinfo"):
+    """Cut-mesh diagnostic export (output_mesh_info,
+    cuthho_square.cpp:1451-1519): cut-cell markers, level-set nodal
+    values, node side, agglo-set class; writes ``basename``.vtk and .npz."""
+    from ..cut.classify import LOC_NEG, LOC_POS
+
+    w = VtkWriter(mesh)
+    loc = _host(cutdata.cell_loc)
+    w.add_variable("cut_cells", np.where(loc == LOC_POS, 1.0,
+                                         np.where(loc == LOC_NEG, -1.0, 0.0)),
+                   "zonal")
+    w.add_variable("level_set", ls(mesh.points), "nodal")
+    w.add_variable("node_pos", np.where(_host(cutdata.node_loc) == LOC_POS,
+                                        1.0, -1.0), "nodal")
+    w.add_variable("agglo_set", _host(cutdata.agglo_set).astype(float),
+                   "zonal")
+    w.write_vtk(basename + ".vtk")
+    w.write_npz(basename + ".npz")
+    return w
+
+
 def dump_sparse_matrix(mat, filename: str):
     """Triplet dump "row col value" of a sparse COO tensor
     (dump_sparse_matrix, utils.hpp:376-386)."""

@@ -1,7 +1,7 @@
 """Tests of proton_tpu_torch that need an NVIDIA GPU: each hand-written
-kernel against its plain PyTorch version on the card, the default solve
-and the uncut HHO path on the card against the same computations on the
-CPU. They skip with a
+kernel against its plain PyTorch version on the card, the default solve,
+the uncut HHO path and the generic cut solves on the card against the
+same computations on the CPU. They skip with a
 reason where no card is present. This file imports neither JAX nor
 proton_tpu, so on a machine without JAX it runs alone:
 
@@ -226,3 +226,26 @@ def test_poisson_solves_on_card_match_cpu():
     assert res.iterations == hres.iterations
     assert float((full.local.cpu() - hfull.local).abs().max()) < 1e-10
     assert float((local.cpu() - hlocal).abs().max()) < 1e-10
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["interface", "fictdom"])
+def test_generic_cut_solves_on_card_match_cpu(solver):
+    """run_interface (condensed + MG) and run_fictdom (Jacobi PCG) at
+    16^2 k=1 on the card against the same solves on the CPU: iteration
+    counts within 2, local dofs within 1e-10, H1 within 1e-10 relative."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from proton_tpu_torch.cut import fictdom, interface_problem
+
+    run = interface_problem.run_interface if solver == "interface" \
+        else fictdom.run_fictdom
+    card, host = run(16, 1, device="cuda"), run(16, 1, device="cpu")
+    assert card.exit_reason == host.exit_reason == cg.CONVERGED
+    assert abs(card.iterations - host.iterations) <= 2
+    assert abs(card.h1_error - host.h1_error) < 1e-10 * host.h1_error
+    for f in (("local_neg", "local_pos") if solver == "interface"
+              else ("local",)):
+        a, b = getattr(card, f), getattr(host, f)
+        assert a.device.type == "cuda"
+        assert float((a.cpu() - b).abs().max()) < 1e-10

@@ -29,7 +29,9 @@ def test_every_module_imports_without_jax():
     mods = _modules()
     for name in ("methods.fused_assembly", "methods.hho", "methods.poisson",
                  "methods.condensation", "methods.obstacle", "io.vtk",
-                 "utils.checkpoint", "apps.polymesh"):
+                 "utils.checkpoint", "apps.polymesh", "cut.fictdom",
+                 "cut.interface_problem", "cut.agglomerate",
+                 "io.debug_plots", "utils.debug", "apps.cuthho_square"):
         assert "proton_tpu_torch." + name in mods
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
@@ -97,3 +99,21 @@ def test_uncut_entry_points_raise_without_cuda(monkeypatch, tmp_path):
                  lambda: polymesh.main([missing])):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
+
+
+def test_cut_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    """No device given and no CUDA: the generic fictdom and interface
+    solves and the cuthho_square app (without --device) raise."""
+    from proton_tpu_torch.apps import cuthho_square
+    from proton_tpu_torch.cut.fictdom import run_fictdom
+    from proton_tpu_torch.cut.interface_problem import run_interface
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
+    for call in (lambda: run_fictdom(4, 1),
+                 lambda: run_interface(4, 1),
+                 lambda: cuthho_square.main(["-f", "-i", "-N", "4", "-M",
+                                             "4", "-d"])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    assert list(tmp_path.iterdir()) == []
