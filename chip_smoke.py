@@ -91,15 +91,35 @@ kernel of its own):
     1e-12, no badly cut cell left, H1 order above 1.6;
 20. [cuthho_square] the app with -f -i at the BASELINE configuration
     (64^2, k=1) against the JAX app's errors, then -A -f -d at 16^2 in a
-    temporary directory.
+    temporary directory;
+
+the geometry families (cut/batched.py, apps/fictdom_family.py; K1 on
+every cell of each geometry's displaced mesh) and the structured-solve
+options:
+
+21. [family] K1 against its plain version on one geometry's displaced
+    1024^2 mesh at k=1; the 1024^2 k=1 family of two circles at the app's
+    tol 1e-6 (all converged, no overflow, no bad cut; K1 launched once per
+    geometry on all 1,048,576 cells, the count read around the call;
+    iterations, ms per iteration, seconds per geometry by phase, peak
+    memory); the app at its documented configuration (-N 256 -k 1 -B 64);
+    the ellipse and flower families at 256^2 B=4; two geometries at 256^2,
+    tol 1e-10, each equal to the structured solve of the same circle (H1
+    rtol 1e-8);
+22. [options] k=1, tol 1e-11: fitted="uniform" equal to fitted="lean" at
+    256^2, the damped block-Jacobi and Jacobi multigrid smoothers against
+    the Chebyshev one at 128^2 (local dofs within 2e-8), and
+    classify_level(method="full") equal to the band one at 1024^2.
 
 Any failed check raises, so the script exits non-zero and prints no
 result. Without a CUDA device it exits non-zero before any phase. The
 second-to-last line is the kernels' JSON record (K1 at k=1 with the
 block-Jacobi main path's launches, at k=2 with the 256^2 solve's, at the
 lean path's shape with the launches of the 1024^2 lean + multigrid solve,
-at k=1 and at k=2, and at the 512^2 classified mesh with the launches of
-the full + multigrid solve), the last line {"ok": true, "device": {...}}.
+at k=1 and at k=2, at the 512^2 classified mesh with the launches of the
+full + multigrid solve, and at one family geometry's displaced 1024^2
+mesh with the launches of the 1024^2 family), the last line
+{"ok": true, "device": {...}}.
 """
 
 import json
@@ -413,10 +433,10 @@ def profile_cg(N: int, k: int, iterations: int) -> None:
 
 
 def solve(N: int, k: int, tol: float, fitted: str = "full",
-          precond: str = "block_jacobi", device: str = "cuda"):
+          precond: str = "block_jacobi", device: str = "cuda", **options):
     """One end-to-end solve with its numbers printed and its result
     checked: converged below tol, finite local dofs of the right shape,
-    a finite H1 error."""
+    a finite H1 error. ``options`` go to solve_fictdom_structured."""
     from proton_tpu_torch.cut import fictdom_structured as fs
     from proton_tpu_torch.solvers import cg
 
@@ -429,10 +449,11 @@ def solve(N: int, k: int, tol: float, fitted: str = "full",
     t0 = time.perf_counter()
     r = fs.solve_fictdom_structured(N, k, fitted=fitted, precond=precond,
                                     cg_params=params, device=device,
-                                    dtype=torch.float64)
+                                    dtype=torch.float64, **options)
     wall = time.perf_counter() - t0
     d = (k + 2) * (k + 3) // 2 + 4 * (k + 1)
-    line("solve", N=N, k=k, fitted=fitted, precond=precond, tol=tol,
+    line("solve", N=N, k=k, fitted=fitted, precond=precond, **options,
+         tol=tol,
          exit=r.exit_reason, iterations=r.iterations, rel=r.rel_residual,
          h1=r.h1_error,
          ms_per_iteration=1e3 * r.timings["cg_s"] / max(r.iterations, 1),
@@ -1339,6 +1360,198 @@ def cuthho_square_phase() -> None:
           "cuthho_square -A -f -d: files")
 
 
+# Phase 21: the geometry families (cut/batched.py). The 1024^2 family's
+# two circles: the reference's centred one and one moved along the app's
+# jitter circle.
+FAMILY_RADII = (0.35, 0.35)
+FAMILY_CENTERS = ((0.5, 0.5), (0.52, 0.5))
+FAMILY_PHASES = ("classify_s", "fitted_s", "cut_s", "condense_s", "cg_s",
+                 "recover_s", "h1_s")
+
+
+def family_solve(N: int, radii, centers, tol: float, device: str = "cuda"):
+    """solve_fictdom_family(N, 1) with K1's launch count and the cell
+    counts of those launches set to 0 just before and read just after;
+    its numbers printed: iterations, ms per iteration, seconds per
+    geometry by phase, peak memory. Checked: all converged, no overflow,
+    no bad cut, no concave cell, finite H1 errors, one K1 launch per
+    geometry on all N^2 cells. Returns (result, launches)."""
+    from proton_tpu_torch.cut import batched
+    from proton_tpu_torch.methods import fused_assembly as fa
+    from proton_tpu_torch.solvers import cg
+
+    B = len(radii)
+    params = cg.CGParams(convergence_threshold=tol, divergence_threshold=1e8,
+                         max_iter=50000, apply_preconditioner=True)
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    timings = {}
+    fa.fused_local_operator.launches = 0
+    fa.fused_local_operator.launch_cells.clear()
+    t0 = time.perf_counter()
+    res = batched.solve_fictdom_family(N, 1, radii, centers,
+                                       cg_params=params, device=device,
+                                       timings=timings)
+    wall = time.perf_counter() - t0
+    launches = fa.fused_local_operator.launches
+    cells = list(fa.fused_local_operator.launch_cells)
+    iterations = res.iterations.tolist()
+    line("family", N=N, k=1, B=B, tol=tol, wall_s=wall,
+         per_geometry_s=wall / B, iterations=",".join(map(str, iterations)),
+         h1=",".join(map(repr, res.h1_error.tolist())),
+         n_cut=",".join(map(str, res.n_cut.tolist())),
+         ms_per_iteration=1e3 * timings["cg_s"] / max(sum(iterations), 1),
+         kernel="fused_local_operator", launches=launches,
+         launch_cells=",".join(map(str, cells)),
+         peak_gb=_peak_gb() if on_card else None,
+         **{f"{key}_per_geometry": round(timings[key] / B, 4)
+            for key in FAMILY_PHASES})
+    check(res.exit_reason.tolist() == [cg.CONVERGED] * B,
+          f"family {N}^2: exits {res.exit_reason.tolist()}")
+    check(res.n_cut_overflow.tolist() == [0] * B and
+          res.n_bad_cuts.tolist() == [0] * B and
+          not bool(res.concave.any()),
+          f"family {N}^2: overflow, bad cuts or concave cells")
+    check(bool(torch.isfinite(res.h1_error).all()), f"family {N}^2: H1")
+    if on_card:
+        check(launches == B and cells == [N * N] * B,
+              f"family {N}^2: K1 launched {launches} times at {cells}")
+    return res, launches
+
+
+def family_app(args, device: str = "cuda") -> dict:
+    """apps/fictdom_family.py with ``args``: its JSON line, printed and
+    checked (all converged, no overflow)."""
+    import contextlib
+    import io
+
+    from proton_tpu_torch.apps import fictdom_family
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = fictdom_family.main([*args, "--device", device])
+    out = json.loads(buf.getvalue().strip().splitlines()[-1])
+    line("family_app", args=" ".join(args), total_s=out["total_s"],
+         per_geometry_s=out["per_geometry_s"],
+         iterations_min=min(out["iterations"]),
+         iterations_max=max(out["iterations"]),
+         n_cut_max=max(out["n_cut"]), all_converged=out["all_converged"],
+         overflow=out["overflow"], backend=out["backend"])
+    check(rc == 0 and out["all_converged"] and out["overflow"] == 0,
+          f"fictdom_family {' '.join(args)}: {out}")
+    return out
+
+
+def family_phase(bw: float, flop_peak: float, N: int = 1024,
+                 N_app: int = 256, device: str = "cuda"):
+    """Phase 21: K1 against its plain version on the displaced N^2 mesh of
+    one family geometry; the N^2 k=1 two-circle family at the app's tol
+    1e-6 with K1's launches; the app at its documented configuration
+    (-N 256 -k 1 -B 64); the ellipse and flower families at 256^2 B=4;
+    and two geometries at 256^2, tol 1e-10, each equal to the structured
+    solve of the same circle (H1 rtol 1e-8). The structured solve is
+    fitted="full" with precond="jacobi", the same discrete system (K1 on
+    every cell), so only rounding separates the two. Returns K1's record
+    row at the family's shape and the family's launches."""
+    from proton_tpu_torch.core.geometry import cell_geometry
+    from proton_tpu_torch.core.mesh import make_poly_mesh
+    from proton_tpu_torch.cut import fictdom_structured as fs
+    from proton_tpu_torch.cut.classify import LOC_CUT, _preprocess_core
+    from proton_tpu_torch.methods import fused_assembly as fa
+    from proton_tpu_torch.solvers import cg
+
+    p = fs.default_problem(FAMILY_RADII[1], FAMILY_CENTERS[1])
+    mesh = make_poly_mesh(Nx=N, Ny=N, device=device)
+    pts, cutdata, _, _ = _preprocess_core(mesh, p.ls, 4)
+    mesh2 = mesh.with_points(pts)
+    line("family_mesh", N=N, displaced=int(cutdata.distorted.sum()),
+         cut=int((cutdata.cell_loc == LOC_CUT).sum()))
+    row = kernel_row(fa.pack_inputs(mesh2, cell_geometry(mesh2)), 2, 1,
+                     1e-11, bw, flop_peak)
+    del mesh, mesh2, pts, cutdata
+
+    _, launches = family_solve(N, FAMILY_RADII, FAMILY_CENTERS, 1e-6,
+                               device)
+    family_app(["-N", str(N_app), "-k", "1", "-B", "64"], device)
+    for shape in ("ellipse", "flower"):
+        family_app(["-N", str(N_app), "-k", "1", "-B", "4", "--shape",
+                    shape], device)
+
+    radii, centers = (0.3, 0.41), ((0.5, 0.5), (0.48, 0.52))
+    fam, _ = family_solve(N_app, radii, centers, 1e-10, device)
+    params = cg.CGParams(convergence_threshold=1e-10,
+                         divergence_threshold=1e8, max_iter=50000,
+                         apply_preconditioner=True)
+    for b, (radius, center) in enumerate(zip(radii, centers)):
+        s = fs.solve_fictdom_structured(
+            N_app, 1, fs.default_problem(radius, center), fitted="full",
+            precond="jacobi", cg_params=params, device=device)
+        rel = abs(float(fam.h1_error[b]) - s.h1_error) / s.h1_error
+        line("family_vs_structured", N=N_app, radius=radius,
+             center=f"{center[0]},{center[1]}",
+             h1_family=float(fam.h1_error[b]), h1_structured=s.h1_error,
+             rel=rel, iterations_family=int(fam.iterations[b]),
+             iterations_structured=s.iterations)
+        check(s.exit_reason == cg.CONVERGED and rel < 1e-8,
+              f"family {N_app}^2 geometry {b}: H1 {rel} apart from the "
+              "structured solve")
+    return row, launches
+
+
+def options_phase(N: int = 256, N_smoother: int = 128,
+                  N_classify: int = 1024, device: str = "cuda") -> None:
+    """Phase 22: the options of solve_fictdom_structured beyond the
+    default path, k=1, tol 1e-11: fitted="uniform" equal to fitted="lean" at N^2
+    (the same iterations, local dofs to 1e-12); the damped block-Jacobi
+    and Jacobi smoothers at N_smoother^2 (local dofs within 2e-8 of the
+    Chebyshev solve; their counts grow too fast to run them at 256^2 here:
+    12,955 and 21,817 iterations there against Chebyshev's 105); and
+    classify_level(method="full") equal to the band one at N_classify^2
+    (codes, moved points, cut cells)."""
+    from proton_tpu_torch.cut import fictdom_structured as fs
+
+    mg = dict(fitted="lean", precond="mg", device=device)
+    lean = solve(N, 1, 1e-11, **mg)
+    uni = solve(N, 1, 1e-11, **dict(mg, fitted="uniform"))
+    diff = float((uni.local - lean.local).abs().max())
+    line("options_uniform", N=N, iterations_uniform=uni.iterations,
+         iterations_lean=lean.iterations, max_abs_local_diff=diff)
+    check(uni.iterations == lean.iterations and diff <= 1e-12,
+          f"{N}^2: fitted='uniform' differs from 'lean' by {diff}")
+    cheb = solve(N_smoother, 1, 1e-11, **mg)
+    for smoother in ("block_jacobi", "jacobi"):
+        r = solve(N_smoother, 1, 1e-11, mg_smoother=smoother, **mg)
+        diff = float((r.local - cheb.local).abs().max())
+        line("options_smoother", N=N_smoother, smoother=smoother,
+             iterations=r.iterations, iterations_chebyshev=cheb.iterations,
+             cg_s=r.timings["cg_s"], cg_s_chebyshev=cheb.timings["cg_s"],
+             max_abs_local_diff=diff)
+        check(diff < 2e-8, f"{N_smoother}^2: mg_smoother={smoother!r} local "
+              f"dofs differ by {diff} from the Chebyshev solve")
+
+    p = fs.default_problem()
+    out, times = {}, {}
+    for method in ("band", "full"):
+        t0 = time.perf_counter()
+        out[method] = fs.classify_level(N_classify, p, 4, device=device,
+                                        method=method)
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+        times[method] = time.perf_counter() - t0
+    (mb, cb, ib), (mf, cf, if_) = out["band"], out["full"]
+    line("options_classify", N=N_classify, band_s=times["band"],
+         full_s=times["full"], cut_cells=len(ib),
+         max_abs_point_diff=float((mb.points - mf.points).abs().max()))
+    for f in ("cell_loc", "face_loc", "node_loc", "distorted"):
+        check(torch.equal(getattr(cb, f), getattr(cf, f)),
+              f"{N_classify}^2: classify_level band and full {f} differ")
+    check(torch.equal(mb.points, mf.points) and np.array_equal(ib, if_),
+          f"{N_classify}^2: classify_level band and full points or cut "
+          "cells differ")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1553,6 +1766,12 @@ def main() -> int:
     cuthho_square_phase()
     line("cut_total", seconds=round(time.perf_counter() - t_cut, 3))
 
+    # 21-22. the geometry families, and the structured-solve options
+    t_family = time.perf_counter()
+    family_row, launches_family = family_phase(bw, f64_peak)
+    options_phase()
+    line("family_total", seconds=round(time.perf_counter() - t_family, 3))
+
     line("total", seconds=round(time.perf_counter() - t_start, 3))
     print(smi, flush=True)
     record = dict(route="cuda", source="proton_tpu_torch/csrc/fused_assembly.cu",
@@ -1568,7 +1787,9 @@ def main() -> int:
         dict(name="fused_local_operator_k2_lean", launches=launches_k2_lean,
              **record, **shape_rows[("displaced", 1024, 2)]),
         dict(name="fused_local_operator_full_mg", launches=launches_full_mg,
-             **record, **shape_rows[("full", 512, 1)])]}), flush=True)
+             **record, **shape_rows[("full", 512, 1)]),
+        dict(name="fused_local_operator_family", launches=launches_family,
+             **record, **family_row)]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}), flush=True)
     return 0

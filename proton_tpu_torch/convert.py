@@ -3,8 +3,9 @@ arrays: any object with the field names of proton_tpu's ``Mesh`` (the
 generated and the loaded ones), ``CellGeom``, ``DofMap``,
 ``FaceIncidence``, ``CondensedSystem``, ``PoissonSolution``,
 ``ObstacleResult``, ``CutData``, ``CutCellBatch``, ``CondensedCL``,
-``UniformCondCL``, ``GridVecCL``, ``InterfaceDofMap``, ``FictdomResult``
-or ``InterfaceResult`` (``np.asarray`` is applied to each field), and the
+``UniformCondCL``, ``GridVecCL``, ``InterfaceDofMap``, ``FictdomResult``,
+``InterfaceResult`` or ``FamilyResult`` (``np.asarray`` is applied to
+each field), and the
 per-level data of its multigrid. The tests use
 these so that each stage of the two packages runs from identical inputs.
 This module imports neither JAX nor proton_tpu."""
@@ -16,6 +17,7 @@ import torch
 
 from .core.geometry import CellGeom
 from .core.mesh import Mesh
+from .cut.batched import FamilyResult
 from .cut.classify import CutData
 from .cut.fictdom import FictdomResult
 from .cut.interface_problem import InterfaceDofMap, InterfaceResult
@@ -117,6 +119,10 @@ def interface_result(r, device) -> InterfaceResult:
         x=tensor(r.x, device), local_neg=tensor(r.local_neg, device),
         local_pos=tensor(r.local_pos, device), h1_error=float(r.h1_error),
         iterations=int(r.iterations), exit_reason=int(r.exit_reason))
+
+
+def family_result(r, device) -> FamilyResult:
+    return _fields(FamilyResult, r, device)
 
 
 def condensed_cl(c, device) -> CondensedCL:

@@ -9,20 +9,23 @@ The pipeline:
 2. the local operators. ``fitted="lean"`` (the default): one unit-cell
    operator from kernel K1 (methods/fused_assembly.py) stands for every
    uncut, undisplaced cell, and K1 assembles only the O(N) cells whose
-   nodes the bad-cut displacement moved. ``fitted="full"``: K1 assembles
-   every cell. Either way the Nitsche cut-cell operators (cut/methods.py)
-   overwrite the cut class;
+   nodes the bad-cut displacement moved. ``fitted="uniform"`` (the JAX
+   default) builds the same lean system: JAX's form broadcasts the unit
+   cell into O(N^2) planes, which changes no number. ``fitted="full"``:
+   K1 assembles every cell. Either way the Nitsche cut-cell operators
+   (cut/methods.py) overwrite the cut class;
 3. static condensation onto the faces (methods/cells_last.condense_cl);
    in the lean form only the irregular columns are condensed and stored;
 4. Dirichlet fold, then PCG on the H/V face grids, preconditioned by the
    reconstruction-transfer multigrid V-cycle (solvers/multigrid.py, the
-   default), per-face block-Jacobi, or Jacobi;
+   default; Chebyshev, damped block-Jacobi or damped Jacobi smoothing),
+   per-face block-Jacobi, or Jacobi;
 5. cell recovery and the chunked H1 error.
 
-Not ported: the dense broadcast ``fitted="uniform"``, the Galerkin coarse
-hierarchy and the damped smoothers, the precision workarounds (mixed,
-mg_f32, cg_f64, cg_segment), the refuted multigrid experiments and every
-disk cache (ROADMAP.md, "Modules to port" and "Not ported").
+Not ported: the Galerkin coarse hierarchy (ROADMAP.md, "The Galerkin
+coarse hierarchy"), the precision workarounds (mixed, mg_f32, cg_f64,
+cg_segment), the refuted multigrid experiments and every disk cache
+(ROADMAP.md, "Not ported").
 """
 
 from __future__ import annotations
@@ -43,7 +46,8 @@ from ..core.ops import HHODegreeInfo, cell_rhs
 from ..methods import assembly, cells_last, fused_assembly, structured
 from ..solvers import cg, multigrid
 from . import methods as cut_methods
-from .classify import LOC_CUT, LOC_NEG, CutData, cut_preprocess_band
+from .classify import (LOC_CUT, LOC_NEG, CutData, cut_preprocess,
+                       cut_preprocess_band)
 from .levelset import LevelSet, circle_level_set
 from .quadrature import side_cell_rule
 
@@ -104,11 +108,16 @@ class StructuredFictdomResult(NamedTuple):
 
 
 def classify_level(N: int, problem: FictdomProblem, int_refsteps: int, *,
-                   device, dtype=DEFAULT_DTYPE):
-    """Mesh + band classification of one level; returns (mesh', CutData,
-    host cut-cell ids)."""
+                   device, dtype=DEFAULT_DTYPE, method: str = "band"):
+    """Mesh + classification of one level; returns (mesh', CutData, host
+    cut-cell ids). ``method``: 'band' (cut_preprocess_band, the O(band)
+    pipeline) or 'full' (cut_preprocess on every cell); the two give the
+    same result."""
+    if method not in ("band", "full"):
+        raise ValueError(f"method={method!r}: expected 'band' or 'full'")
     mesh = make_poly_mesh(Nx=N, Ny=N, device=device, dtype=dtype)
-    mesh, cutdata = cut_preprocess_band(mesh, problem.ls, levels=int_refsteps)
+    pre = cut_preprocess_band if method == "band" else cut_preprocess
+    mesh, cutdata = pre(mesh, problem.ls, levels=int_refsteps)
     cut_ids = np.nonzero(cutdata.cell_loc.cpu().numpy() == LOC_CUT)[0]
     return mesh, cutdata, cut_ids
 
@@ -263,13 +272,9 @@ def _assemble_level_uniform_lean(mesh, geom, cell_loc, batch, dist_ids,
 
 
 def _check_fitted(fitted: str) -> None:
-    if fitted == "uniform":
-        raise NotImplementedError(
-            "fitted='uniform' (the dense broadcast of the unit cell) is not "
-            "ported; fitted='lean' is the same system without the O(N^2) "
-            "planes (ROADMAP.md, Modules to port, item 4)")
-    if fitted not in ("lean", "full"):
-        raise ValueError(f"fitted={fitted!r}: expected 'lean' or 'full'")
+    if fitted not in ("lean", "uniform", "full"):
+        raise ValueError(f"fitted={fitted!r}: expected 'lean', 'uniform' "
+                         "or 'full'")
 
 
 def _check_precond(precond: str) -> None:
@@ -284,9 +289,10 @@ def build_level(N: int, hdi: HHODegreeInfo, problem: FictdomProblem,
                 with_rhs: bool = True,
                 timings: Optional[dict] = None) -> LevelData:
     """Classify + assemble + condense one level. ``fitted``: 'full'
-    assembles every cell with K1; 'lean' assembles only the O(N)
-    displaced and cut cells around the unit-cell operator (exact on the
-    generated mesh up to basis translation-invariance). ``with_rhs=False``
+    assembles every cell with K1; 'lean' (and 'uniform', the same system)
+    assembles only the O(N) displaced and cut cells around the unit-cell
+    operator (exact on the generated mesh up to basis
+    translation-invariance). ``with_rhs=False``
     (the multigrid coarse levels) skips the load vectors. Phase times go
     into ``timings``; the lean assembly condenses as it goes, so its time
     is all in ``assembly_s``."""
@@ -301,7 +307,7 @@ def build_level(N: int, hdi: HHODegreeInfo, problem: FictdomProblem,
 
     t0 = time.perf_counter()
     geom = cell_geometry(mesh)
-    if fitted == "lean":
+    if fitted in ("lean", "uniform"):
         unit = _unit_cell_host(hdi, 1.0 / N, mesh.points.device)
         irr_ids = np.union1d(dist_ids, cut_ids)
         cond = _assemble_level_uniform_lean(
@@ -360,11 +366,13 @@ def build_coarse_levels(N: int, hdi: HHODegreeInfo, problem: FictdomProblem,
 def level_multigrid(levels: Dict[int, LevelData], hdi: HHODegreeInfo, *,
                     mg_coarsest: int = 8, n_smooth: int = 1,
                     patch_ring: int = 1, patch_colors: int = 1,
-                    cheb_degree: int = 4, patch_sweeps: int = 1
+                    cheb_degree: int = 4, patch_sweeps: int = 1,
+                    smoother: str = "chebyshev"
                     ) -> multigrid.Multigrid:
     """The V-cycle over ``levels`` ({n: LevelData}, the finest included):
-    Chebyshev(cheb_degree) over block-Jacobi, then the interface-patch
-    smoother on the cut cells grown by ``patch_ring``."""
+    ``smoother`` (multigrid.build_multigrid: Chebyshev(cheb_degree) over
+    block-Jacobi, or damped block-Jacobi or Jacobi), then the
+    interface-patch smoother on the cut cells grown by ``patch_ring``."""
     N = max(levels)
     lean = {n: isinstance(lev.cond, cells_last.UniformCondCL)
             for n, lev in levels.items()}
@@ -376,7 +384,7 @@ def level_multigrid(levels: Dict[int, LevelData], hdi: HHODegreeInfo, *,
         cut_ids_per_level={n: expand_ring(lev.cut_ids, n, patch_ring)
                            for n, lev in levels.items()},
         cheb_degree=cheb_degree, patch_colors=patch_colors,
-        patch_sweeps=patch_sweeps,
+        patch_sweeps=patch_sweeps, smoother=smoother,
         uniform_per_level={n: (lev.S_u, lev.irr_ids)
                            for n, lev in levels.items() if lean[n]})
 
@@ -409,13 +417,14 @@ def face_system(level: LevelData, N: int, hdi: HHODegreeInfo,
     gF_cl = assembly.local_dirichlet_data(dofmap, level.mesh, fd)[:, cbs:].T
     cond = level.cond
     if isinstance(cond, cells_last.UniformCondCL):
-        if precond == "jacobi":
-            raise ValueError("the lean system supports precond 'mg' and "
-                             "'block_jacobi' only")
         S_u, irr = level.S_u, level.irr_ids
         rhs = cells_last.uniform_rhs_cl(sys_f, cond, S_u, irr, gF_cl)
         apply_S = cells_last.make_uniform_operator_cl(sys_f, S_u, irr,
                                                       cond.dS)
+        if precond == "jacobi":
+            return FaceSystem(sys_f, gF_cl, rhs, apply_S, None,
+                              cells_last.uniform_diagonal_cl(
+                                  sys_f, S_u, irr, cond.dS))
         bj = None
         if precond == "block_jacobi":
             hf, vf = cells_last.uniform_face_block_deltas(sys_f, cond.dS,
@@ -452,8 +461,8 @@ def recover_local(fsys: FaceSystem, level: LevelData, hdi: HHODegreeInfo,
 # Options of the JAX solve that the port leaves out: name -> (the value
 # that is accepted, what the option is). The first four are TPU precision
 # workarounds and the next four are experiments the JAX package measured
-# as no gain (ROADMAP.md, "Not ported"); the last two are ROADMAP.md,
-# Modules to port, item 4.
+# as no gain (ROADMAP.md, "Not ported"); the last is still to port
+# (ROADMAP.md, "The Galerkin coarse hierarchy").
 _NOT_PORTED = {
     "mixed": (False, "the mixed-precision cut splice"),
     "mg_f32": (False, "the float32 V-cycle"),
@@ -465,7 +474,6 @@ _NOT_PORTED = {
     "cheb_ops": ("exact", "a Chebyshev operator pair other than exact"),
     "mg_gamma": (1, "a W-style cycle"),
     "mg_galerkin": (False, "the Galerkin coarse hierarchy"),
-    "mg_smoother": ("chebyshev", "a smoother other than Chebyshev"),
 }
 
 
@@ -479,9 +487,11 @@ def _check_unported(options: dict) -> None:
                             f"keyword argument {name!r}")
         accepted, what = _NOT_PORTED[name]
         if value is not None and value != accepted:
+            where = ("'The Galerkin coarse hierarchy', still to port"
+                     if name == "mg_galerkin" else "'Not ported'")
             raise NotImplementedError(
                 f"{name}={value!r}: {what} is not ported (ROADMAP.md, "
-                "'Not ported' and Modules to port, item 4)")
+                f"{where})")
 
 
 def solve_fictdom_structured(
@@ -490,7 +500,8 @@ def solve_fictdom_structured(
         cg_params: Optional[cg.CGParams] = None, compute_h1: bool = True,
         fitted: str = "lean", side: int = LOC_NEG, *, mg_coarsest: int = 8,
         n_smooth: int = 1, patch_ring: int = 1, patch_colors: int = 1,
-        cheb_degree: int = 4, patch_sweeps: int = 1, device=None,
+        cheb_degree: int = 4, patch_sweeps: int = 1,
+        mg_smoother: str = "chebyshev", device=None,
         dtype=DEFAULT_DTYPE, **unported) -> StructuredFictdomResult:
     """End-to-end fictdom solve on the generated N x N mesh at HHO degree
     ``degree`` (cell degree k+1, face degree k).
@@ -499,11 +510,19 @@ def solve_fictdom_structured(
     N/2, ..., ``mg_coarsest``: ``n_smooth`` sweeps of
     Chebyshev(``cheb_degree``) over block-Jacobi plus ``patch_sweeps`` of
     the interface-patch smoother on the cut cells grown by ``patch_ring``
-    layers, in ``patch_colors`` colors), 'block_jacobi' (per-face blocks)
-    or 'jacobi' (the reference's PCG preconditioner,
-    solver_cg.hpp:63-144; fitted='full' only). ``fitted``: 'lean' or
-    'full' (build_level). Options of the JAX solve that are not ported
-    raise NotImplementedError (_check_unported).
+    layers, in ``patch_colors`` colors; ``mg_smoother`` 'block_jacobi'
+    or 'jacobi' replaces Chebyshev by that base damped by 0.67),
+    'block_jacobi' (per-face blocks) or 'jacobi' (the reference's PCG
+    preconditioner, solver_cg.hpp:63-144; refused with fitted='lean', as
+    in the JAX package). ``fitted``: 'lean', 'uniform' or 'full'
+    (build_level).
+
+    Departures from the JAX solve: ``fitted="uniform"`` builds the lean
+    system (the same numbers without the O(N^2) broadcast planes; its
+    Jacobi diagonal is the whole operator's, as JAX's from the broadcast
+    S); the Jacobi smoother on a lean level takes the whole operator's
+    diagonal, where the JAX package's fails. Options of the JAX solve
+    that are not ported raise NotImplementedError (_check_unported).
 
     Runs on CUDA unless ``device="cpu"``; raises without a device when
     CUDA is absent. ``timings`` holds the phase times, each ended by a
@@ -512,6 +531,13 @@ def solve_fictdom_structured(
     _check_precond(precond)
     _check_fitted(fitted)
     _check_unported(unported)
+    if mg_smoother not in multigrid.SMOOTHERS:
+        raise ValueError(f"mg_smoother={mg_smoother!r}: expected one of "
+                         f"{multigrid.SMOOTHERS}")
+    if fitted == "lean" and precond == "jacobi":
+        raise ValueError("the lean system supports precond 'mg' and "
+                         "'block_jacobi' only, as in the JAX package "
+                         "(fitted='uniform' takes 'jacobi')")
     if problem is None:
         problem = default_problem()
     if cg_params is None:
@@ -545,7 +571,8 @@ def solve_fictdom_structured(
         apply_precond = level_multigrid(
             levels, hdi, mg_coarsest=mg_coarsest, n_smooth=n_smooth,
             patch_ring=patch_ring, patch_colors=patch_colors,
-            cheb_degree=cheb_degree, patch_sweeps=patch_sweeps).precondition
+            cheb_degree=cheb_degree, patch_sweeps=patch_sweeps,
+            smoother=mg_smoother).precondition
         synchronize(device)
         timings["mg_setup_s"] = time.perf_counter() - t0
     del levels
@@ -575,12 +602,16 @@ def solve_fictdom_structured(
 
 def fictdom_h1_error_chunked(mesh, geom, batch, cell_loc,
                              hdi: HHODegreeInfo, local, sol_grad,
-                             side: int = LOC_NEG, chunk: int = 65536
-                             ) -> float:
+                             side: int = LOC_NEG, chunk: int = 65536,
+                             cut_valid=None) -> float:
     """H1(grad) error over the physical side (fictdom_h1_error,
     cuthho_square.cpp:1031-1050): the fitted cells of ``side`` in blocks
     of ``chunk`` cells, so no [C, Q, rbs, 2] tensor of the whole mesh
-    exists, plus the cut cells on their side quadrature."""
+    exists, plus the cut cells on their side quadrature.
+
+    ``cut_valid`` ([Cc] bool): the rows of ``batch`` that count. The
+    contribution of the others is computed and then masked out, as the
+    JAX package does for the padding rows of a fixed-capacity batch."""
     celdeg = hdi.cell_degree
     cbs = bases.cell_basis_size(celdeg)
     cdofs = local[:, :cbs]
@@ -607,5 +638,9 @@ def fictdom_h1_error_chunked(mesh, geom, batch, cell_loc,
     cgh = torch.einsum("cqix,ci->cqx", cdphi[:, :, 1:, :],
                        cdofs[batch.ids][:, 1:])
     cge = sol_grad(crule.pts)
-    err = err + torch.sum(crule.w * torch.sum((cge - cgh) ** 2, dim=-1))
-    return float(torch.sqrt(err))
+    cut_contrib = torch.sum(crule.w * torch.sum((cge - cgh) ** 2, dim=-1),
+                            dim=-1)
+    if cut_valid is not None:
+        cut_contrib = torch.where(cut_valid, cut_contrib,
+                                  torch.zeros_like(cut_contrib))
+    return float(torch.sqrt(err + torch.sum(cut_contrib)))

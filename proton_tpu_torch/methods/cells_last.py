@@ -297,6 +297,24 @@ def make_uniform_operator_cl(sys: StructuredFaceSystem, S_u, ids=None,
     return apply_S
 
 
+def uniform_diagonal_cl(sys: StructuredFaceSystem, S_u, irr_ids,
+                        dS) -> GridVecCL:
+    """structured_diagonal_cl of the spliced system (the unit cell's
+    diagonal on every cell plus the diagonal of dS at the irregular
+    columns), without forming the spliced S."""
+    nfd = 4 * sys.fbs
+    dl = _on(sys, S_u, dS.dtype).diagonal()[:, None].repeat(
+        1, sys.Nx * sys.Ny)
+    irr = _ids_np(irr_ids)
+    if len(irr):
+        dl[:, torch.as_tensor(irr, device=dl.device)] += dS.reshape(
+            nfd, nfd, -1).diagonal(dim1=0, dim2=1).T
+    d = grid_scatter_cl(sys, dl)
+    one = torch.ones((), dtype=dl.dtype, device=dl.device)
+    return GridVecCL(torch.where(sys.freeH[None], d.H, one),
+                     torch.where(sys.freeV[None], d.V, one))
+
+
 def uniform_block_jacobi_blocks(sys: StructuredFaceSystem, S_u):
     """[fbs, fbs] inverse diagonal blocks (iHu, iVu) of the uniform
     system's interior H and V faces: every free face sees the same two

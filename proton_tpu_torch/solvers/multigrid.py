@@ -15,7 +15,8 @@ hierarchy).
   faces on the coarse skeleton average the two adjacent reconstructions.
   The restriction is the adjoint, written out as a stencil;
 - smoothing: Chebyshev(degree) over the block-Jacobi-preconditioned
-  operator, then the interface-patch smoother on the cut cells;
+  operator (or damped block-Jacobi or Jacobi), then the interface-patch
+  smoother on the cut cells;
 - coarsest level: the operator made dense by applying it to the columns
   of the identity, then an eigendecomposition pseudo-inverse.
 
@@ -364,15 +365,42 @@ def _vcycle(mg: Multigrid, lvl: int, b: GridVecCL) -> GridVecCL:
     return smooth(x, tuple(reversed(level.smoothers)))
 
 
+SMOOTHERS = ("chebyshev", "block_jacobi", "jacobi")
+
+
+def _jacobi(diag: GridVecCL):
+    """r -> r / diag on the grids."""
+    inv = GridVecCL(1.0 / diag.H, 1.0 / diag.V)
+
+    def apply(r: GridVecCL) -> GridVecCL:
+        return GridVecCL(r.H * inv.H, r.V * inv.V)
+
+    return apply
+
+
+def _damped(base, omega: float):
+    def apply(r: GridVecCL) -> GridVecCL:
+        z = base(r)
+        return GridVecCL(omega * z.H, omega * z.V)
+
+    return apply
+
+
 def build_multigrid(N: int, fbs: int, S_per_level, hdi: HHODegreeInfo,
                     n_smooth: int = 2, coarsest: int = 8,
                     cut_ids_per_level=None, patch_sweeps: int = 1,
                     cheb_degree: int = 4, patch_colors: int = 1,
-                    uniform_per_level=None) -> Multigrid:
+                    uniform_per_level=None, smoother: str = "chebyshev",
+                    omega: float = 0.67) -> Multigrid:
     """The V-cycle over meshes N, N/2, ..., coarsest of the unit square,
-    on cells-last grids, with the Chebyshev smoother over the exact
-    operator pair (the JAX package's layout="cl", smoother="chebyshev",
-    cheb_ops="exact").
+    on cells-last grids (the JAX package's layout="cl", cheb_ops="exact").
+
+    ``smoother``: 'chebyshev' (Chebyshev(cheb_degree) over the
+    block-Jacobi-preconditioned operator), 'block_jacobi' (per-face
+    fbs x fbs blocks) or 'jacobi' (pointwise), the last two damped by
+    ``omega``. On a lean level the Jacobi diagonal is that of the whole
+    operator, unit cell plus deviations (cells_last.uniform_diagonal_cl):
+    the JAX package scatters the deviation columns alone there and fails.
 
     ``S_per_level``: {n: S_n}, the condensed local Schur matrices of each
     rediscretized level, cells-last. With ``uniform_per_level``
@@ -382,6 +410,9 @@ def build_multigrid(N: int, fbs: int, S_per_level, hdi: HHODegreeInfo,
     full S); without an entry S_n is the full [nfd*nfd, C_n] array.
     ``cut_ids_per_level`` ({n: patch cell ids}) turns on the
     interface-patch smoother on each level."""
+    if smoother not in SMOOTHERS:
+        raise ValueError(f"smoother={smoother!r}: expected one of "
+                         f"{SMOOTHERS}")
     sizes = _mg_sizes(N, coarsest)
     dtype, device = S_per_level[N].dtype, S_per_level[N].device
     systems = {n: make_structured_system(n, n, fbs, device=device)
@@ -400,17 +431,26 @@ def build_multigrid(N: int, fbs: int, S_per_level, hdi: HHODegreeInfo,
                 raise ValueError(f"level {n}: dS has {dS.shape[1]} columns "
                                  f"for {len(irr)} irregular cells")
             apply_S = cl.make_uniform_operator_cl(sys_n, S_u, irr, dS)
-            hf, vf = cl.uniform_face_block_deltas(sys_n, dS, irr)
-            base = cl.make_uniform_block_jacobi_cl(
-                sys_n, *cl.uniform_block_jacobi_blocks(sys_n, S_u),
-                *cl.uniform_bj_from_deltas(sys_n, S_u, hf, vf, dtype))
+            if smoother == "jacobi":
+                base = _jacobi(cl.uniform_diagonal_cl(sys_n, S_u, irr, dS))
+            else:
+                hf, vf = cl.uniform_face_block_deltas(sys_n, dS, irr)
+                base = cl.make_uniform_block_jacobi_cl(
+                    sys_n, *cl.uniform_block_jacobi_blocks(sys_n, S_u),
+                    *cl.uniform_bj_from_deltas(sys_n, S_u, hf, vf, dtype))
         else:
             apply_S = cl.make_structured_operator_cl(sys_n, S_n)
-            base = cl.block_jacobi_preconditioner_cl(sys_n, S_n)
+            base = _jacobi(cl.structured_diagonal_cl(sys_n, S_n)) \
+                if smoother == "jacobi" else \
+                cl.block_jacobi_preconditioner_cl(sys_n, S_n)
 
-        lam = estimate_lambda_max(apply_S, base, _zeros_grid(sys_n, dtype))
-        smoothers = (make_chebyshev_smoother(apply_S, base, lam,
-                                             degree=cheb_degree),)
+        if smoother == "chebyshev":
+            lam = estimate_lambda_max(apply_S, base,
+                                      _zeros_grid(sys_n, dtype))
+            smoothers = (make_chebyshev_smoother(apply_S, base, lam,
+                                                 degree=cheb_degree),)
+        else:
+            smoothers = (_damped(base, omega),)
         patch_ids = () if cut_ids_per_level is None else \
             cut_ids_per_level.get(n, ())
         if len(patch_ids) > 0:

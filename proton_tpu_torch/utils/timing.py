@@ -73,12 +73,14 @@ bold = _wrap(1)
 
 @contextmanager
 def timed(timings: Optional[dict], name: str, device):
-    """Record the block's seconds under ``timings[name]``, the device
-    synchronized at its end; a no-op when ``timings`` is None."""
+    """Add the block's seconds to ``timings[name]`` (so a phase run once
+    per item of a loop sums), the device synchronized at its end; a no-op
+    when ``timings`` is None."""
     if timings is None:
         yield
         return
     t0 = time.perf_counter()
     yield
     synchronize(device)
-    timings[name] = time.perf_counter() - t0
+    timings[name] = timings.get(name, 0.0) + time.perf_counter() - t0
+

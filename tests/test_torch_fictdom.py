@@ -336,3 +336,26 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
         fictdom.run_fictdom(8, 1)
     with pytest.raises(RuntimeError, match="CUDA"):
         cuthho_square.main(["-f", "-M", "8", "-N", "8"])
+
+
+def test_assemble_fictdom_local_takes_jax_arguments():
+    """The JAX argument list (mesh, geom, batch, ls, hdi, rhs_fun,
+    bcs_fun, side) works: the two functions are ignored, as in JAX, and
+    side lands in side."""
+    p = default_problem()
+    mesh, cd = classify.cut_preprocess(make_poly_mesh(Nx=8, Ny=8,
+                                                      device=CPU), p.ls, 4)
+    geom = cell_geometry(mesh)
+    batch = methods.make_cut_batch(mesh, geom, cd, fictdom.cut_cell_ids(cd))
+    hdi = HHODegreeInfo(2, 1)
+    for side in (classify.LOC_NEG, classify.LOC_POS):
+        lc, oper = fictdom.assemble_fictdom_local(mesh, geom, batch, p.ls,
+                                                  hdi, p.rhs_fun, p.sol_fun,
+                                                  side)
+        lc_kw, oper_kw = fictdom.assemble_fictdom_local(mesh, geom, batch,
+                                                        p.ls, hdi, side=side)
+        assert torch.equal(lc, lc_kw) and torch.equal(oper, oper_kw)
+    neg, _ = fictdom.assemble_fictdom_local(mesh, geom, batch, p.ls, hdi)
+    assert torch.equal(neg, fictdom.assemble_fictdom_local(
+        mesh, geom, batch, p.ls, hdi, None, None, classify.LOC_NEG)[0])
+    assert not torch.equal(neg, lc)

@@ -31,7 +31,9 @@ def test_every_module_imports_without_jax():
                  "methods.condensation", "methods.obstacle", "io.vtk",
                  "utils.checkpoint", "apps.polymesh", "cut.fictdom",
                  "cut.interface_problem", "cut.agglomerate",
-                 "io.debug_plots", "utils.debug", "apps.cuthho_square"):
+                 "io.debug_plots", "utils.debug", "apps.cuthho_square",
+                 "methods.structured", "cut.batched",
+                 "apps.fictdom_family"):
         assert "proton_tpu_torch." + name in mods
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"

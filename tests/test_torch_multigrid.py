@@ -20,12 +20,12 @@ import torch
 from proton_tpu.core.ops import HHODegreeInfo as JHHODegreeInfo
 from proton_tpu.cut import fictdom_structured as jfs
 from proton_tpu.methods import cells_last as jcl, structured as jstructured
-from proton_tpu.solvers import multigrid as jmg
+from proton_tpu.solvers import cg as jcg, multigrid as jmg
 from proton_tpu_torch import convert
 from proton_tpu_torch.core.ops import HHODegreeInfo
 from proton_tpu_torch.cut import fictdom_structured as fs
 from proton_tpu_torch.methods import cells_last, structured
-from proton_tpu_torch.solvers import multigrid
+from proton_tpu_torch.solvers import cg, multigrid
 
 CPU = torch.device("cpu")
 F64 = torch.float64
@@ -166,10 +166,10 @@ def jax_levels():
             for fitted in ("lean", "full") for n in (16, 8)}
 
 
-def _mg_pair(jax_levels, fitted):
+def _mg_pair(jax_levels, fitted, smoother="chebyshev"):
     """(JAX Multigrid, port Multigrid) over the 16^2 and 8^2 levels, with
-    solve_fictdom_structured's defaults (one Chebyshev(4) sweep, the patch
-    smoother on the cut cells grown by one ring)."""
+    solve_fictdom_structured's defaults (one sweep of ``smoother``, the
+    patch smoother on the cut cells grown by one ring)."""
     jhdi, hdi = JHHODegreeInfo(2, 1), HHODegreeInfo(2, 1)
     levs = {n: jax_levels[(fitted, n)] for n in (16, 8)}
     lean = fitted == "lean"
@@ -178,10 +178,11 @@ def _mg_pair(jax_levels, fitted):
     uni = {n: (lev.S_u, lev.irr_ids) for n, lev in levs.items()} \
         if lean else None
     jm = jmg.build_multigrid(16, 2, S, hdi=jhdi, coarsest=8, n_smooth=1,
-                             cut_ids_per_level=cuts, smoother="chebyshev",
+                             cut_ids_per_level=cuts, smoother=smoother,
                              layout="cl", uniform_per_level=uni)
     m = multigrid.build_multigrid(
-        16, 2, hdi=hdi, coarsest=8, n_smooth=1, **convert.mg_levels(
+        16, 2, hdi=hdi, coarsest=8, n_smooth=1, smoother=smoother,
+        **convert.mg_levels(
             {n: (np.asarray(S[n]), levs[n].S_u, levs[n].irr_ids, cuts[n])
              for n in levs}, CPU))
     return jm, m
@@ -255,7 +256,7 @@ def test_unported_multigrid_options_raise():
     """Multigrid options of the JAX solve that are not ported raise
     NotImplementedError naming ROADMAP.md; their accepted values pass the
     check; an unknown keyword is a TypeError."""
-    for kw in (dict(mg_smoother="block_jacobi"), dict(cheb_ops="mixed"),
+    for kw in (dict(cheb_ops="mixed"),
                dict(mg_transfer="cut"), dict(mg_deflate=4),
                dict(mg_gamma=2), dict(mg_f32=True), dict(mixed=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -266,3 +267,108 @@ def test_unported_multigrid_options_raise():
                                     mg_smoother="chebyshev", cheb_ops="exact",
                                     mg_gamma=1, compute_h1=False)
     assert r.exit_reason == 0
+
+
+@pytest.mark.parametrize("smoother", ["block_jacobi", "jacobi"])
+def test_damped_smoother_vcycle_matches(jax_levels, smoother):
+    """The V-cycle with the damped block-Jacobi or Jacobi smoother
+    (omega 0.67) against the JAX package's on the same full levels,
+    1e-10, and its symmetry to 1e-10. On lean levels: block-Jacobi in
+    test_damped_smoother_solves_match_jax (an eager JAX V-cycle build over
+    lean levels costs ~20 s here), Jacobi in
+    test_lean_jacobi_smoother_repairs_jax."""
+    jm, m = _mg_pair(jax_levels, "full", smoother)
+    rng = np.random.default_rng(13)
+    jr, js = _grid(rng, 2, 16), _grid(rng, 2, 16)
+    r, s = convert.grid_vec_cl(jr, CPU), convert.grid_vec_cl(js, CPU)
+    for step, jstep in zip(m.levels[0].smoothers, jm.levels[0].smoothers):
+        for a, b in zip(step(r), jstep(jr)):
+            _close(a, b, 1e-11)
+    Mr, Ms = m.precondition(r), m.precondition(s)
+    for a, b in zip(Mr, jm.precondition(jr)):
+        _close(a, b, 1e-10)
+    lhs, rhs = _dot(Mr, s), _dot(r, Ms)
+    assert abs(lhs - rhs) <= 1e-10 * abs(lhs)
+
+
+def test_lean_jacobi_smoother_repairs_jax(jax_levels):
+    """JAX's Jacobi smoother takes the diagonal of S_per_level[n], which
+    on a lean level is the deviation dS of the irregular columns alone:
+    its face scatter fails. The port takes the diagonal of the whole
+    operator (uniform_diagonal_cl): equal to the diagonal of the spliced
+    full S, and its V-cycle equals the JAX one over the spliced S, where
+    JAX is right (1e-10)."""
+    jhdi = JHHODegreeInfo(2, 1)
+    levs = {n: jax_levels[("lean", n)] for n in (16, 8)}
+    cuts = {n: jfs.expand_ring(lev.cut_ids, n, 1) for n, lev in levs.items()}
+    with pytest.raises(TypeError, match="reshape"):
+        jmg.build_multigrid(
+            16, 2, {n: lev.cond.dS for n, lev in levs.items()}, hdi=jhdi,
+            coarsest=8, n_smooth=1, cut_ids_per_level=cuts,
+            smoother="jacobi", layout="cl",
+            uniform_per_level={n: (lev.S_u, lev.irr_ids)
+                               for n, lev in levs.items()})
+
+    full = {n: np.repeat(np.asarray(lev.S_u).reshape(-1, 1), n * n, axis=1)
+            for n, lev in levs.items()}
+    for n, lev in levs.items():
+        full[n][:, lev.irr_ids] += np.asarray(lev.cond.dS)
+        sys_ = structured.make_structured_system(n, n, 2, device=CPU)
+        dS = convert.tensor(lev.cond.dS, CPU)
+        for a, b in zip(cells_last.uniform_diagonal_cl(sys_, lev.S_u,
+                                                       lev.irr_ids, dS),
+                        cells_last.structured_diagonal_cl(
+                            sys_, torch.as_tensor(full[n]))):
+            _close(a, b, 1e-14)
+
+    jm = jmg.build_multigrid(16, 2, {n: jnp.asarray(S) for n, S in
+                                     full.items()}, hdi=jhdi, coarsest=8,
+                             n_smooth=1, cut_ids_per_level=cuts,
+                             smoother="jacobi", layout="cl")
+    m = multigrid.build_multigrid(
+        16, 2, hdi=HHODegreeInfo(2, 1), coarsest=8, n_smooth=1,
+        smoother="jacobi", **convert.mg_levels(
+            {n: (np.asarray(lev.cond.dS), lev.S_u, lev.irr_ids, cuts[n])
+             for n, lev in levs.items()}, CPU))
+    jr = _grid(np.random.default_rng(17), 2, 16)
+    for a, b in zip(m.precondition(convert.grid_vec_cl(jr, CPU)),
+                    jm.precondition(jr)):
+        _close(a, b, 1e-10)
+
+
+def _cgp(tol):
+    return dict(convergence_threshold=tol, divergence_threshold=1e8,
+                max_iter=50000, apply_preconditioner=True)
+
+
+@pytest.mark.parametrize("fitted,smoother", [("uniform", "block_jacobi"),
+                                             ("full", "jacobi")])
+def test_damped_smoother_solves_match_jax(fitted, smoother):
+    """solve_fictdom_structured(16, 1, mg_smoother=...) against the JAX
+    solve with the same options where JAX computes it (its Jacobi
+    smoother needs full levels): iterations within 2, H1 rtol 1e-6,
+    local dofs within 1e-8, at CG tol 1e-10."""
+    r = fs.solve_fictdom_structured(16, 1, fitted=fitted,
+                                    mg_smoother=smoother,
+                                    cg_params=cg.CGParams(**_cgp(1e-10)),
+                                    device="cpu")
+    jr = jfs.solve_fictdom_structured(16, 1, mixed=False, use_pallas=False,
+                                      fitted=fitted, mg_smoother=smoother,
+                                      cg_params=jcg.CGParams(**_cgp(1e-10)))
+    assert r.exit_reason == int(jr.exit_reason) == 0
+    assert abs(r.iterations - int(jr.iterations)) <= 2
+    assert np.isclose(r.h1_error, float(jr.h1_error), rtol=1e-6)
+    _close(r.local, jr.local, 1e-8)
+
+
+def test_lean_jacobi_smoother_solve():
+    """The repaired lean + Jacobi-smoother solve (JAX fails there) equals
+    the full + Jacobi-smoother one (the same discrete system up to the
+    full assembly's rounding): iterations within 2, H1 rtol 1e-6."""
+    kw = dict(mg_smoother="jacobi", cg_params=cg.CGParams(**_cgp(1e-10)),
+              device="cpu")
+    lean = fs.solve_fictdom_structured(16, 1, fitted="lean", **kw)
+    full = fs.solve_fictdom_structured(16, 1, fitted="full", **kw)
+    assert lean.exit_reason == full.exit_reason == 0
+    assert abs(lean.iterations - full.iterations) <= 2
+    assert np.isclose(lean.h1_error, full.h1_error, rtol=1e-6)

@@ -205,7 +205,61 @@ def test_jacobi_solve_and_unported_options():
                                     device="cpu")
     assert r.exit_reason == cg.CONVERGED
     assert np.isclose(r.h1_error, GATES[(16, 1)][1], rtol=1e-6)
-    for unported in (dict(fitted="uniform"), dict(mg_galerkin=True),
-                     dict(cg_segment=25)):
+    for unported in (dict(mg_galerkin=True), dict(cg_segment=25)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             fs.solve_fictdom_structured(8, 1, device="cpu", **unported)
+
+
+@pytest.fixture(scope="module")
+def uniform_pair():
+    """The JAX package's 16^2 k=1 solves with fitted="uniform" (its
+    default), precond "mg" and "jacobi", CG tol 1e-10."""
+    return {precond: jfs.solve_fictdom_structured(
+        16, 1, precond=precond, fitted="uniform", mixed=False,
+        use_pallas=False, cg_params=jcg.CGParams(**_cgp()))
+        for precond in ("mg", "jacobi")}
+
+
+@pytest.mark.parametrize("precond", ["mg", "jacobi"])
+def test_fitted_uniform_matches_jax(uniform_pair, precond):
+    """fitted="uniform" builds the lean system: its solve equals the lean
+    one exactly, and the JAX package's fitted="uniform" solve (the unit
+    cell broadcast over the mesh) to local dofs 1e-8, H1 rtol 1e-6 and
+    iterations within 2. With precond="jacobi" the port's diagonal is the
+    whole lean operator's, JAX's that of the broadcast S; fitted="lean"
+    refuses Jacobi, as in the JAX package, so there the uniform solve is
+    held to the full one."""
+    kw = dict(precond=precond, cg_params=cg.CGParams(**_cgp()),
+              device="cpu")
+    r = fs.solve_fictdom_structured(16, 1, fitted="uniform", **kw)
+    if precond == "mg":
+        other = fs.solve_fictdom_structured(16, 1, fitted="lean", **kw)
+        assert r.iterations == other.iterations
+        assert torch.equal(r.local, other.local)
+    else:
+        other = fs.solve_fictdom_structured(16, 1, fitted="full", **kw)
+        assert abs(r.iterations - other.iterations) <= 2
+        _close(r.local.numpy(), other.local.numpy(), 1e-8)
+    jr = uniform_pair[precond]
+    assert r.exit_reason == int(jr.exit_reason) == cg.CONVERGED
+    assert abs(r.iterations - int(jr.iterations)) <= 2
+    assert np.isclose(r.h1_error, float(jr.h1_error), rtol=1e-6)
+    _close(r.local.numpy(), np.asarray(jr.local), 1e-8)
+
+
+def test_classify_level_full_equals_band():
+    """classify_level(method="full"), cut_preprocess on every cell, gives
+    the band pipeline's classification at 32^2: the same codes, moved
+    points and cut ids, and the same interface points on the cut cells
+    (the band pipeline leaves the other cells' rows at zero)."""
+    p = fs.default_problem()
+    band = fs.classify_level(32, p, 4, device=CPU)
+    full = fs.classify_level(32, p, 4, device=CPU, method="full")
+    assert torch.equal(band[0].points, full[0].points)
+    for name in ("node_loc", "face_loc", "cell_loc", "distorted"):
+        assert torch.equal(getattr(band[1], name), getattr(full[1], name))
+    assert np.array_equal(band[2], full[2])
+    cut = band[2]
+    assert torch.equal(band[1].interface[cut], full[1].interface[cut])
+    with pytest.raises(ValueError, match="method"):
+        fs.classify_level(8, p, 4, device=CPU, method="bands")
