@@ -41,7 +41,7 @@ Phases, in order, each printing its numbers on lines of its own:
 9. k=2 with the default path: the 64^2 and 128^2 gates of the JAX
    package, then 256^2, 512^2 and 1024^2 (tol 1e-11) with the H1 orders
    between them;
-10. torch.profiler over 20 multigrid-PCG iterations at 1024^2 k=1: device
+10. torch.profiler over 10 multigrid-PCG iterations at 1024^2 k=1: device
     time by region (operator, Chebyshev, patch, restrict, prolong, coarse
     solve, the rest) and by level, kernel launches per iteration, the
     device's busy share, and the scalar reads and host-to-device copies
@@ -77,14 +77,14 @@ kernel of its own):
     1024^2 mesh against the band one (codes and moved points equal), the
     agglomeration-detection branch and make_neighbors_info at 1024^2;
 17. [fictdom_generic] Jacobi PCG on the full system, tol 1e-12: the JAX
-    package's CPU numbers at 16^2, 32^2 k=1 and 16^2 k=2, then 128^2,
-    256^2, 512^2 k=1 (H1 order 256 -> 512 in [1.8, 2.2]) and, at 256^2,
+    package's CPU numbers at 16^2, 32^2 k=1 and 16^2 k=2, then 64^2,
+    128^2, 256^2 k=1 (H1 order 128 -> 256 in [1.8, 2.2]) and, at 256^2,
     H1 within 1e-6 of the structured solve of the same problem;
 18. [interface] condensed + uniform MG + cut-band Schwarz, tol 1e-9: the
     JAX gates at 16^2, 32^2 (k=0, 1) and 16^2 k=2, the full system
     against the condensed one at 16^2, kappa_2 = 3 on the block-Jacobi
     branch at 64^2, then 256^2, 512^2, 1024^2 k=1 (H1 order 512 -> 1024
-    in [1.8, 2.2]) and torch.profiler over 20 of its CG iterations at
+    in [1.8, 2.2]) and torch.profiler over 10 of its CG iterations at
     1024^2 (one scalar read per iteration, no host-to-device copy);
 19. [agglomerate] the merge at 128^2 and 256^2 (seconds by part), plain
     classification and the fictdom solve on the merged mesh: area 1 to
@@ -102,14 +102,47 @@ options:
     tol 1e-6 (all converged, no overflow, no bad cut; K1 launched once per
     geometry on all 1,048,576 cells, the count read around the call;
     iterations, ms per iteration, seconds per geometry by phase, peak
-    memory); the app at its documented configuration (-N 256 -k 1 -B 64);
-    the ellipse and flower families at 256^2 B=4; two geometries at 256^2,
+    memory); the app at its documented widths (-N 256 -k 1) with 16 of
+    the documented 64 geometries (-B 16);
+    the ellipse and flower families at 256^2 B=2; two geometries at 256^2,
     tol 1e-10, each equal to the structured solve of the same circle (H1
     rtol 1e-8);
 22. [options] k=1, tol 1e-11: fitted="uniform" equal to fitted="lean" at
     256^2, the damped block-Jacobi and Jacobi multigrid smoothers against
     the Chebyshev one at 128^2 (local dofs within 2e-8), and
-    classify_level(method="full") equal to the band one at 1024^2.
+    classify_level(method="full") equal to the band one at 1024^2;
+
+the Galerkin coarse hierarchy (solvers/multigrid.py's pair-operator
+engine, cut/fictdom_structured.band_galerkin_levels; K1 on the lean
+path's shapes) and parallel/ (torch.distributed; no kernel of its own):
+
+23. [galerkin] tol 1e-11: the JAX package's gates with mg_galerkin=True
+    at 16^2, 32^2 k=1 (also mg_gamma=2) and 16^2 k=2 (iterations within
+    2, H1 rtol 1e-6 at k=1, 1e-4 at k=2); k=2 at 256^2, 512^2 and 1024^2
+    with iterations, ms per iteration, galerkin_setup_s, deviation pairs
+    per level, peak memory and K1's launches, each held against the
+    rediscretized solve of the same N, k and tol, reused from phase 9
+    (local dofs within 1e-6 of max|local|; H1 rtol 1e-4, 5e-4 at
+    1024^2); mg_gamma=2 at 256^2 k=2; torch.profiler over 20 Galerkin-MG
+    iterations at 1024^2 k=2 (`[profile_galerkin*]`: device time by
+    region and level, the Galerkin apply's conv and pairs by level,
+    launches, busy share, one scalar read and no host-to-device copy per
+    iteration); k=1 at 1024^2 capped at 300 iterations, where it stalls
+    (`[galerkin_stall]`: the residual must be below 3e-4; it is not held
+    against phase 7's solution);
+24. [parallel] one rank on NCCL (world size 1, file:// store in a
+    temporary directory): sharded_solve and solve_condensed_halo at 512^2
+    k=1 against the single-process solves (equal iterations, 1e-9),
+    halo_diagonal against structured_diagonal. Exchanges between ranks
+    are held only by the CPU tests (gloo, 2 and 4 ranks).
+
+Every phase prints its seconds (`[phase]`). To fit the 1,000 s budget,
+depth was cut: the fictdom_family app runs at -B 16 (was 64) and its
+ellipse and flower families at B=2 (was 4); phase 17's order is taken
+from 128^2 to 256^2 (the 512^2 solve is gone); phases 10 and 18 profile
+10 iterations (was 20); and phase 23 reuses the rediscretized solutions
+of phases 7 and 9 instead of solving again, and profiles on the 1024^2
+k=2 solve's Galerkin hierarchy.
 
 Any failed check raises, so the script exits non-zero and prints no
 result. Without a CUDA device it exits non-zero before any phase. The
@@ -117,9 +150,10 @@ second-to-last line is the kernels' JSON record (K1 at k=1 with the
 block-Jacobi main path's launches, at k=2 with the 256^2 solve's, at the
 lean path's shape with the launches of the 1024^2 lean + multigrid solve,
 at k=1 and at k=2, at the 512^2 classified mesh with the launches of the
-full + multigrid solve, and at one family geometry's displaced 1024^2
-mesh with the launches of the 1024^2 family), the last line
-{"ok": true, "device": {...}}.
+full + multigrid solve, at one family geometry's displaced 1024^2 mesh
+with the launches of the 1024^2 family, and at the lean path's shape with
+the launches of the 1024^2 Galerkin solves, at k=1 and at k=2), the last
+line {"ok": true, "device": {...}}.
 """
 
 import json
@@ -128,6 +162,7 @@ import re
 import subprocess
 import sys
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -243,6 +278,16 @@ def check(ok: bool, what: str) -> None:
 def line(tag: str, **kv) -> None:
     print(f"[{tag}] " + " ".join(f"{k}={v}" for k, v in kv.items()),
           flush=True)
+
+
+_PHASE_START = [time.perf_counter()]
+
+
+def phase_done(name: str) -> None:
+    """Print the seconds since the previous phase ended."""
+    now = time.perf_counter()
+    line("phase", name=repr(name), seconds=round(now - _PHASE_START[0], 3))
+    _PHASE_START[0] = now
 
 
 def peaks(name: str):
@@ -433,15 +478,19 @@ def profile_cg(N: int, k: int, iterations: int) -> None:
 
 
 def solve(N: int, k: int, tol: float, fitted: str = "full",
-          precond: str = "block_jacobi", device: str = "cuda", **options):
+          precond: str = "block_jacobi", device: str = "cuda",
+          cap: Optional[int] = None, **options):
     """One end-to-end solve with its numbers printed and its result
     checked: converged below tol, finite local dofs of the right shape,
-    a finite H1 error. ``options`` go to solve_fictdom_structured."""
+    a finite H1 error. ``options`` go to solve_fictdom_structured. With
+    ``cap``, CG stops after about cap iterations and may end there (exit
+    2): the caller then gates the residual."""
     from proton_tpu_torch.cut import fictdom_structured as fs
     from proton_tpu_torch.solvers import cg
 
     params = cg.CGParams(convergence_threshold=tol,
-                         divergence_threshold=1e8, max_iter=50000,
+                         divergence_threshold=1e8,
+                         max_iter=50000 if cap is None else cap,
                          apply_preconditioner=True)
     on_card = torch.device(device).type == "cuda"
     if on_card:
@@ -460,8 +509,12 @@ def solve(N: int, k: int, tol: float, fitted: str = "full",
          wall_s=wall,
          peak_gb=torch.cuda.max_memory_allocated() / 1e9 if on_card else None,
          **{key: round(v, 4) for key, v in r.timings.items()})
-    check(r.exit_reason == cg.CONVERGED and r.rel_residual < tol,
-          f"{N}^2 k={k}: exit {r.exit_reason}, rel {r.rel_residual}")
+    if cap is None:
+        check(r.exit_reason == cg.CONVERGED and r.rel_residual < tol,
+              f"{N}^2 k={k}: exit {r.exit_reason}, rel {r.rel_residual}")
+    else:
+        check(r.exit_reason in (cg.CONVERGED, cg.MAX_ITER_REACHED),
+              f"{N}^2 k={k}: exit {r.exit_reason}, rel {r.rel_residual}")
     check(tuple(r.local.shape) == (N * N, d) and
           bool(torch.isfinite(r.local).all()), f"{N}^2 k={k}: local")
     check(math.isfinite(r.h1_error), f"{N}^2 k={k}: H1 {r.h1_error}")
@@ -593,10 +646,14 @@ def host_traffic(events, iterations: int, labels=()):
     return reads, h2d
 
 
-def profile_mg(N: int, k: int, iterations: int, device: str = "cuda") -> None:
+def profile_mg(N: int, k: int, iterations: int, device: str = "cuda",
+               galerkin: bool = False, tag: str = "profile_mg") -> None:
     """torch.profiler over `iterations` multigrid-PCG iterations of the
-    lean N^2 system. Every callable of the V-cycle is labelled with its
-    level and kind, so the device time splits by region and by level:
+    lean N^2 system (with ``galerkin``, over the Galerkin hierarchy
+    galerkin_levels builds from the same levels; its apply's conv and
+    deviation pairs are then split by level too). Every callable of
+    the V-cycle is labelled with its level and kind, so the device time
+    splits by region and by level:
     `cheb` (the Chebyshev smoother with its own operator and block-Jacobi
     applies), `apply` (the V-cycle's residual operator applies), `patch`,
     `restrict`, `prolong`, `coarse_solve`, CG's operator apply, and the
@@ -618,8 +675,9 @@ def profile_mg(N: int, k: int, iterations: int, device: str = "cuda") -> None:
     levels = {N: fine, **fs.build_coarse_levels(N, hdi, problem, eta, 4,
                                                 device=device)}
     fsys = fs.face_system(fine, N, hdi, problem, "mg", device=device)
-    mg = fs.level_multigrid(levels, hdi)
-    del levels
+    gal = galerkin_levels(N, k, levels) if galerkin else None
+    mg = fs.level_multigrid(levels, hdi, galerkin=gal)
+    del levels, gal
 
     labels = []
 
@@ -641,6 +699,8 @@ def profile_mg(N: int, k: int, iterations: int, device: str = "cuda") -> None:
             lev.prolong and labelled(f"L{n}.prolong", lev.prolong),
             lev.restrict and labelled(f"L{n}.restrict", lev.restrict)))
     mg = mg._replace(levels=wrapped)
+    # the Galerkin apply's own spans (multigrid.make_galerkin_operator_cl)
+    labels += ["galerkin.conv", "galerkin.pairs"]
     vcycle = labelled("vcycle", mg.precondition)
     apply_S = labelled("cg.apply_S", fsys.apply_S)
 
@@ -670,7 +730,7 @@ def profile_mg(N: int, k: int, iterations: int, device: str = "cuda") -> None:
                and e.key not in labels]
     # run() reads one scalar per iteration (the exit test); the vcycle
     # runs once less than the iterations (none after the last test)
-    line("profile_mg_host", N=N, k=k, iterations=iterations,
+    line(f"{tag}_host", N=N, k=k, iterations=iterations,
          ms_per_iteration=1e3 * wall / iterations,
          scalar_reads_per_iteration=scalar_reads,
          host_to_device_copies=h2d,
@@ -679,7 +739,7 @@ def profile_mg(N: int, k: int, iterations: int, device: str = "cuda") -> None:
     check(h2d == 0, f"{h2d} host-to-device copies in the window")
     device_us = sum(e.self_device_time_total for e in kernels)
     if device_us == 0:
-        line("profile_mg", N=N, k=k, device_time="not measured")
+        line(tag, N=N, k=k, device_time="not measured")
         check(not on_card, "the profiler saw no device time on the card")
         return
     region = {name: cpu_side[name].device_time_total for name in labels
@@ -687,7 +747,7 @@ def profile_mg(N: int, k: int, iterations: int, device: str = "cuda") -> None:
     launches = sum(e.count for e in kernels)
     vc = region.pop("vcycle", 0.0)
     cg_apply = region.pop("cg.apply_S", 0.0)
-    line("profile_mg", N=N, k=k, iterations=iterations,
+    line(tag, N=N, k=k, iterations=iterations,
          ms_per_iteration=1e3 * wall / iterations,
          device_us_per_iteration=per_it(device_us),
          kernel_launches_per_iteration=per_it(launches),
@@ -698,23 +758,54 @@ def profile_mg(N: int, k: int, iterations: int, device: str = "cuda") -> None:
                        if name.endswith("." + kind))
              for kind in ("cheb", "apply", "patch", "restrict", "prolong")}
     coarse = vc - sum(kinds.values())
-    line("profile_mg_region", **{f"{kind}_us": per_it(v)
+    line(f"{tag}_region", **{f"{kind}_us": per_it(v)
                                  for kind, v in kinds.items()},
          coarse_solve_and_vector_sums_us=per_it(coarse))
     for lev in wrapped[:-1]:     # the coarsest level is the dense solve
         n = lev.sys.Nx
         mine = {name.split(".")[1]: v for name, v in region.items()
                 if name.startswith(f"L{n}.")}
-        line("profile_mg_level", n=n,
+        line(f"{tag}_level", n=n,
              level_us=per_it(sum(mine.values())),
              **{f"{kind}_us": per_it(v) for kind, v in mine.items()})
     ops = [e for e in cpu_side.values()
            if e.key.startswith("aten::") and e.self_device_time_total > 0]
     for e in sorted(ops, key=lambda e: -e.self_device_time_total)[:8]:
-        line("profile_mg_op", op=e.key,
+        line(f"{tag}_op", op=e.key,
              calls_per_iteration=per_it(e.count),
              device_us_per_iteration=per_it(e.self_device_time_total),
              share=e.self_device_time_total / device_us)
+    if galerkin:
+        galerkin_split(prof.events(), iterations, tag)
+
+
+def galerkin_split(events, iterations: int, tag: str) -> None:
+    """Device time of the Galerkin apply's two parts (its
+    `galerkin.conv` and `galerkin.pairs` spans) by level: each span is
+    charged to the level label (`L<n>.<kind>`) it runs under."""
+    from torch.autograd import DeviceType
+
+    split = {}
+    for e in events:
+        if e.name not in ("galerkin.conv", "galerkin.pairs") or \
+                e.device_type != DeviceType.CPU:
+            continue
+        p = e.cpu_parent
+        while p is not None and not re.match(r"L\d+\.", p.name):
+            p = p.cpu_parent
+        n = int(p.name[1:].split(".")[0]) if p is not None else -1
+        key = (n, e.name.split(".")[1])
+        calls, us = split.get(key, (0, 0.0))
+        split[key] = (calls + 1, us + e.device_time_total)
+    for n in sorted({n for n, _ in split}, reverse=True):
+        conv, pairs = split.get((n, "conv"), (0, 0.0)), \
+            split.get((n, "pairs"), (0, 0.0))
+        line(f"{tag}_galerkin_apply", n=n,
+             applies_per_iteration=conv[0] / iterations,
+             conv_us_per_iteration=conv[1] / iterations,
+             pairs_us_per_iteration=pairs[1] / iterations,
+             conv_us_per_apply=conv[1] / max(conv[0], 1),
+             pairs_us_per_apply=pairs[1] / max(pairs[0], 1))
 
 
 def hho_vs_k1(N: int, bw: float) -> None:
@@ -1096,10 +1187,11 @@ def fictdom_generic(N: int, k: int, **kw):
 def fictdom_generic_phase() -> None:
     """Phase 17: the generic fictitious-domain solve (Jacobi PCG on the
     full cell + face system, tol 1e-12): the JAX gates at 16^2, 32^2 k=1
-    and 16^2 k=2, then 128^2 ... 512^2 k=1 with the H1 order from 256^2,
-    and at 256^2 against the structured solve of the same problem (the
-    same discretization: on the CPU at 32^2 the two JAX paths agree to
-    1.7e-9 relative in H1)."""
+    and 16^2 k=2, then 64^2 ... 256^2 k=1 with the H1 order from 128^2
+    (512^2, 21 s of Jacobi PCG, was cut to fit phases 23-24 in the
+    budget), and at 256^2 against the structured solve of the same
+    problem (the same discretization: on the CPU at 32^2 the two JAX
+    paths agree to 1.7e-9 relative in H1)."""
     from proton_tpu_torch.cut import fictdom_structured as fs
     from proton_tpu_torch.solvers import cg
 
@@ -1114,10 +1206,10 @@ def fictdom_generic_phase() -> None:
                            rel_tol=1e-6 if k < 2 else 1e-4),
               f"fictdom {n}^2 k={k}: H1")
     h1 = {}
-    for n in (128, 256, 512):
+    for n in (64, 128, 256):
         h1[n] = fictdom_generic(n, 1).h1_error
-    order = math.log2(h1[256] / h1[512])
-    line("fictdom_generic_order", h1_256=h1[256], h1_512=h1[512],
+    order = math.log2(h1[128] / h1[256])
+    line("fictdom_generic_order", h1_128=h1[128], h1_256=h1[256],
          order=order)
     check(1.8 <= order <= 2.2, f"fictdom H1 order {order} outside "
           "[1.8, 2.2]")
@@ -1254,7 +1346,7 @@ def interface_phase() -> None:
          order_512_1024=order)
     check(1.8 <= order <= 2.2, f"interface H1 order {order} outside "
           "[1.8, 2.2]")
-    profile_interface(1024, 1, iterations=20)
+    profile_interface(1024, 1, iterations=10)
 
 
 def agglomerate_phase() -> None:
@@ -1448,8 +1540,9 @@ def family_phase(bw: float, flop_peak: float, N: int = 1024,
                  N_app: int = 256, device: str = "cuda"):
     """Phase 21: K1 against its plain version on the displaced N^2 mesh of
     one family geometry; the N^2 k=1 two-circle family at the app's tol
-    1e-6 with K1's launches; the app at its documented configuration
-    (-N 256 -k 1 -B 64); the ellipse and flower families at 256^2 B=4;
+    1e-6 with K1's launches; the app at its documented widths with 16 of
+    its 64 geometries (-N 256 -k 1 -B 16); the ellipse and flower
+    families at 256^2 B=2;
     and two geometries at 256^2, tol 1e-10, each equal to the structured
     solve of the same circle (H1 rtol 1e-8). The structured solve is
     fitted="full" with precond="jacobi", the same discrete system (K1 on
@@ -1474,9 +1567,9 @@ def family_phase(bw: float, flop_peak: float, N: int = 1024,
 
     _, launches = family_solve(N, FAMILY_RADII, FAMILY_CENTERS, 1e-6,
                                device)
-    family_app(["-N", str(N_app), "-k", "1", "-B", "64"], device)
+    family_app(["-N", str(N_app), "-k", "1", "-B", "16"], device)
     for shape in ("ellipse", "flower"):
-        family_app(["-N", str(N_app), "-k", "1", "-B", "4", "--shape",
+        family_app(["-N", str(N_app), "-k", "1", "-B", "2", "--shape",
                     shape], device)
 
     radii, centers = (0.3, 0.41), ((0.5, 0.5), (0.48, 0.52))
@@ -1552,6 +1645,293 @@ def options_phase(N: int = 256, N_smoother: int = 128,
           "cells differ")
 
 
+# Phase 23: the Galerkin coarse hierarchy. The JAX package on the CPU in
+# float64, (iterations, H1) of solve_fictdom_structured(N, k,
+# mg_galerkin=True, mg_gamma=gamma, mixed=False, use_pallas=False) at CG
+# tol 1e-11, divergence 1e8, max_iter 50000 (tests/test_torch_galerkin.py
+# holds the port to the same numbers on the CPU): (N, k, gamma) ->
+GALERKIN_GATES = {(16, 1, 1): (11, 0.004434838976281151),
+                  (32, 1, 1): (19, 0.0011344765335767838),
+                  (16, 2, 1): (9, 0.0001804137275041844),
+                  (32, 1, 2): (22, 0.0011344765320524402)}
+
+
+def galerkin_levels(N: int, k: int, levels=None, device: str = "cuda"):
+    """{n: GalerkinLevel} of fs.band_galerkin_levels on ``levels`` (by
+    default the lean N^2 levels, built here), with its host seconds and
+    its deviation pairs, patch cells and stencil width per level
+    printed."""
+    from proton_tpu_torch.core.ops import HHODegreeInfo
+    from proton_tpu_torch.cut import fictdom_structured as fs
+
+    hdi = HHODegreeInfo(k + 1, k)
+    if levels is None:
+        problem, eta = fs.default_problem(), fs.nitsche_eta(k)
+        levels = {N: fs.build_level(N, hdi, problem, eta, 4, device=device,
+                                    fitted="lean"),
+                  **fs.build_coarse_levels(N, hdi, problem, eta, 4,
+                                           device=device)}
+    t0 = time.perf_counter()
+    gal = fs.band_galerkin_levels(levels, hdi)
+    torch.cuda.synchronize()
+    line("galerkin_levels", N=N, k=k, seconds=time.perf_counter() - t0,
+         **{f"pairs_{n}": int(g.rows.shape[0]) for n, g in gal.items()},
+         **{f"patch_cells_{n}": int(g.cells.shape[0])
+            for n, g in gal.items()},
+         **{f"stencil_{n}": g.kernel.shape[-1] for n, g in gal.items()})
+    return gal
+
+
+def galerkin_solve(tag: str, N: int, k: int, cap: Optional[int] = None):
+    """counted_solve of the lean + Galerkin multigrid solve at tol 1e-11
+    (``cap``: solve()'s): (result, K1 launches, their cell counts). The
+    unit-cell operators are computed anew, so K1's launches are the lean
+    path's whatever ran before."""
+    from proton_tpu_torch.cut import fictdom_structured as fs
+
+    fs._unit_cell_host.cache_clear()
+    r, launches, cells = counted_solve(
+        tag, N, k, 1e-11, fitted="lean", precond="mg", mg_galerkin=True,
+        cap=cap)
+    line("galerkin_setup", N=N, k=k,
+         galerkin_setup_s=r.timings["galerkin_setup_s"])
+    return r, launches, cells
+
+
+# Phase 23: the H1 gap between the Galerkin and the rediscretized solve at
+# 1024^2 k=2, tol 1e-11: 1.38e-4 to 1.55e-4 in four runs on the H100
+# (PERF.md §5). Below 1024^2 the gap is 5.4e-5 or less and the gate 1e-4.
+GALERKIN_H1_RTOL_1024 = 5e-4
+
+
+def against_rediscretized(N: int, k: int, gal, red) -> None:
+    """The Galerkin solve against the rediscretized one of the same N, k
+    and tol 1e-11: local dofs within 1e-6 of max|local|, H1 within rtol
+    1e-4 below 1024^2 and GALERKIN_H1_RTOL_1024 at 1024^2, where each
+    solve's algebraic error at tol 1e-11 moves the H1 error by about
+    1.5e-4."""
+    diff = float((gal.local - red.local).abs().max())
+    umax = float(red.local.abs().max())
+    h1_rtol = GALERKIN_H1_RTOL_1024 if N >= 1024 else 1e-4
+    line("galerkin_vs_rediscretized", N=N, k=k,
+         iterations_galerkin=gal.iterations,
+         iterations_rediscretized=red.iterations,
+         ms_per_iteration_galerkin=1e3 * gal.timings["cg_s"] /
+         gal.iterations,
+         ms_per_iteration_rediscretized=1e3 * red.timings["cg_s"] /
+         red.iterations,
+         h1_galerkin=gal.h1_error, h1_rediscretized=red.h1_error,
+         h1_rel=abs(gal.h1_error - red.h1_error) / red.h1_error,
+         max_abs_local_diff=diff, max_abs_local=umax)
+    check(math.isclose(gal.h1_error, red.h1_error, rel_tol=h1_rtol),
+          f"{N}^2 k={k}: Galerkin H1 {gal.h1_error} against "
+          f"{red.h1_error}")
+    check(diff <= 1e-6 * umax, f"{N}^2 k={k}: Galerkin local dofs "
+          f"{diff} from the rediscretized solve's")
+
+
+# Phase 23: the 1024^2 k=1 Galerkin solve stalls: its relative residual
+# stays near 1e-4 from 300 to 1,600 iterations, and 512^2 k=1 does not
+# reach 1e-11 in 1,600 (proton_tpu_torch/tools/galerkin_history.py on the
+# H100; PERF.md). The JAX package stalls alike: its float64 Galerkin solve
+# takes the port's counts at 128^2 and 256^2 k=1 on the CPU. So it runs
+# capped at GALERKIN_K1_CAP iterations, is not held against phase 7's
+# solution, and must reach GALERKIN_K1_REL there (1.19e-4 to 1.34e-4 in
+# four runs on the H100): a worse hierarchy shows.
+GALERKIN_K1_CAP = 300
+GALERKIN_K1_REL = 3e-4
+
+
+def galerkin_phase(red, displaced_cells):
+    """Phase 23 [galerkin], tol 1e-11, float64: the JAX package's gates at
+    16^2, 32^2 k=1 (also with mg_gamma=2) and 16^2 k=2 (iterations within
+    2, H1 rtol 1e-6 at k=1, 1e-4 at k=2); k=2 at 256^2, 512^2 and 1024^2
+    with mg_galerkin=True, each held against the rediscretized solve of
+    the same N, k and tol in ``red`` (phases 7 and 9;
+    against_rediscretized), with K1's launches and cell counts;
+    mg_gamma=2 at 256^2 k=2 (at 512^2 it takes 957 iterations at 178 ms,
+    170 s, more than the budget leaves: tools/galerkin_history.py
+    --gamma 2 measures it); torch.profiler over 20 Galerkin-MG
+    iterations at 1024^2 k=2 on a hierarchy built anew from the
+    profiled levels; the 1024^2 k=1 solve capped at GALERKIN_K1_CAP
+    iterations (it stalls), its residual below GALERKIN_K1_REL, with K1's
+    launches. Returns K1's launches in the 1024^2 k=1
+    and k=2 Galerkin solves."""
+    for (n, k, gamma), (iters, h1) in GALERKIN_GATES.items():
+        r = solve(n, k, 1e-11, fitted="lean", precond="mg", mg_galerkin=True,
+                  mg_gamma=gamma)
+        line("galerkin_gate", N=n, k=k, gamma=gamma, iterations=r.iterations,
+             ref_iterations=iters, h1=r.h1_error, ref_h1=h1)
+        check(abs(r.iterations - iters) <= 2,
+              f"{n}^2 k={k} gamma={gamma}: Galerkin iterations")
+        check(math.isclose(r.h1_error, h1, rel_tol=1e-6 if k == 1 else 1e-4),
+              f"{n}^2 k={k} gamma={gamma}: Galerkin H1")
+    for n in (256, 512):
+        galerkin_levels(n, 2)
+        torch.cuda.empty_cache()
+        r, launches, cells = galerkin_solve(f"galerkin_solve_{n}_k2", n, 2)
+        check(launches > 0 and 1 in cells,
+              f"{n}^2 k=2: the Galerkin solve launched K1 at {cells}")
+        against_rediscretized(n, 2, r, red[(n, 2)])
+        del r
+    r = solve(256, 2, 1e-11, fitted="lean", precond="mg", mg_galerkin=True,
+              mg_gamma=2)
+    line("galerkin_gamma2", N=256, k=2, iterations=r.iterations,
+         ms_per_iteration=1e3 * r.timings["cg_s"] / r.iterations,
+         iterations_rediscretized=red[(256, 2)].iterations)
+    against_rediscretized(256, 2, r, red[(256, 2)])
+    del r
+    torch.cuda.empty_cache()
+
+    r, launches_k2, cells = galerkin_solve("galerkin_solve_1024_k2", 1024, 2)
+    check_lean_launches("the Galerkin 1024^2 k=2 solve", cells,
+                        displaced_cells)
+    against_rediscretized(1024, 2, r, red[(1024, 2)])
+    del r
+    torch.cuda.empty_cache()
+    profile_mg(1024, 2, iterations=20, galerkin=True, tag="profile_galerkin")
+    torch.cuda.empty_cache()
+
+    r, launches_k1, cells = galerkin_solve(
+        "galerkin_solve_1024_k1", 1024, 1, cap=GALERKIN_K1_CAP)
+    check_lean_launches("the Galerkin 1024^2 k=1 solve", cells,
+                        displaced_cells)
+    line("galerkin_stall", N=1024, k=1, iterations=r.iterations,
+         exit=r.exit_reason, rel=r.rel_residual, rel_limit=GALERKIN_K1_REL,
+         iterations_rediscretized=red[(1024, 1)].iterations)
+    check(r.rel_residual < GALERKIN_K1_REL,
+          f"1024^2 k=1: the Galerkin residual {r.rel_residual} after "
+          f"{r.iterations} iterations, above {GALERKIN_K1_REL}")
+    del r
+    torch.cuda.empty_cache()
+    return launches_k1, launches_k2
+
+
+# Phase 24: the condensed uncut system's Jacobi PCG runs into the rounding
+# floor between 1e-11 and 1e-12 (512^2 k=1 on the H100: 803 and 805
+# iterations at 1e-12 for two summation orders of one operator; on the
+# CPU 18 / 414 / 760 iterations at 1e-10 / 1e-11 / 1e-12), so the halo
+# solve is held to the single-process one at 1e-10.
+HALO_TOL = 1e-10
+
+
+def parallel_phase(N: int = 512, k: int = 1, tol: float = 1e-12,
+                   device: str = "cuda") -> None:
+    """Phase 24 [parallel]: proton_tpu_torch.parallel on one card, a
+    process group of world size 1 on NCCL over CUDA tensors (file://
+    store in a temporary directory, destroyed at the end). On the uncut
+    N^2 k=1 problem: sharded_solve against the single-process Jacobi PCG
+    of the same global system at tol (equal iterations, x within 1e-9),
+    solve_condensed_halo against solve_condensed_structured at HALO_TOL
+    (equal iterations, local dofs within 1e-9) and at tol (local dofs
+    within 1e-9; the counts are printed), halo_diagonal against
+    structured_diagonal; ms per iteration of each. Exchanges between ranks
+    are held only by the CPU tests (tests/test_torch_parallel.py: gloo, 2
+    and 4 ranks): with one card, multi-rank NCCL is not measured."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from proton_tpu_torch.core.geometry import cell_geometry
+    from proton_tpu_torch.core.mesh import make_quad_mesh
+    from proton_tpu_torch.core.ops import HHODegreeInfo, cell_rhs
+    from proton_tpu_torch.methods import assembly, condensation, poisson, \
+        structured
+    from proton_tpu_torch.parallel import halo, sharding
+    from proton_tpu_torch.solvers import cg
+
+    rhs_fn, sol, _ = _sin_problem()
+    hdi = HHODegreeInfo(k + 1, k)
+    params, halo_params = (cg.CGParams(
+        convergence_threshold=t, divergence_threshold=1e8, max_iter=200000,
+        apply_preconditioner=True) for t in (tol, HALO_TOL))
+    on_card = torch.device(device).type == "cuda"
+    backend = "nccl" if on_card else "gloo"
+    mesh = make_quad_mesh(Nx=N, Ny=N, device=device)
+    geom = cell_geometry(mesh)
+    lc = poisson.assemble_local(mesh, geom, hdi)[1]
+    f = cell_rhs(mesh, geom, hdi.cell_degree, rhs_fn)
+    dm = assembly.build_dofmap(mesh, hdi)
+    g_loc = assembly.local_dirichlet_data(
+        dm, mesh, assembly.dirichlet_face_data(mesh, hdi, sol))
+    rhs = assembly.assemble_rhs(dm, f, lc, g_loc)
+
+    def timed_call(fn):
+        sync = torch.cuda.synchronize if on_card else (lambda: None)
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dmesh = sharding.make_device_mesh(
+            device, init_method=f"file://{tmp}/store",
+            rank=0, world_size=1)
+        try:
+            line("parallel", backend=dist.get_backend(), world_size=1,
+                 device=str(dmesh.device))
+            check(dist.get_backend() == backend,
+                  f"the group is not on {backend}")
+            single, t_single = timed_call(lambda: cg.conjugated_gradient(
+                assembly.make_operator(dm, lc), rhs,
+                assembly.operator_diagonal(dm, lc), params))
+            dm_pad, C = sharding.build_dofmap_padded(mesh, hdi, 1)
+            sharded, t_sharded = timed_call(lambda: sharding.sharded_solve(
+                dmesh, dm_pad, lc, rhs, params))
+            diff = float((sharded.x - single.x).abs().max())
+            line("parallel_sharded", N=N, k=k, tol=tol,
+                 iterations=sharded.iterations,
+                 iterations_single=single.iterations,
+                 ms_per_iteration=1e3 * t_sharded / sharded.iterations,
+                 ms_per_iteration_single=1e3 * t_single / single.iterations,
+                 max_abs_x_diff=diff)
+            check(sharded.exit_reason == cg.CONVERGED and
+                  sharded.iterations == single.iterations and diff <= 1e-9,
+                  f"{N}^2: sharded_solve differs from the single-process "
+                  f"solve ({sharded.iterations} against {single.iterations} "
+                  f"iterations, x {diff})")
+            del single, sharded
+
+            sys_ = structured.make_structured_system(N, N, dm.fbs,
+                                                     device=device)
+            cond = condensation.condense(lc, f, dm.cbs)
+            for p in (halo_params, params):
+                (local_ref, ref), t_ref = timed_call(
+                    lambda: structured.solve_condensed_structured(
+                        sys_, lc, f, dm.cbs, g_loc, p))
+                (local, res), t_halo = timed_call(
+                    lambda: halo.solve_condensed_halo(
+                        dmesh, sys_, cond, g_loc, dm.cbs, p))
+                diff = float((local - local_ref).abs().max())
+                line("parallel_halo", N=N, k=k,
+                     tol=p.convergence_threshold, iterations=res.iterations,
+                     iterations_single=ref.iterations,
+                     ms_per_iteration=1e3 * t_halo / res.iterations,
+                     ms_per_iteration_single=1e3 * t_ref / ref.iterations,
+                     max_abs_local_diff=diff)
+                check(res.exit_reason == cg.CONVERGED and diff <= 1e-9,
+                      f"{N}^2 tol {p.convergence_threshold}: "
+                      f"solve_condensed_halo local dofs {diff} from "
+                      "solve_condensed_structured's")
+                check(p is params or res.iterations == ref.iterations,
+                      f"{N}^2: solve_condensed_halo took {res.iterations} "
+                      f"iterations, solve_condensed_structured "
+                      f"{ref.iterations}")
+            d = halo.halo_diagonal(dmesh, sys_, cond.S)
+            d_ref = structured.structured_diagonal(sys_, cond.S)
+            d_diff = max(float((d.H - d_ref.H[:-1]).abs().max()),
+                         float((d.V - d_ref.V).abs().max()))
+            line("parallel_halo_diagonal", N=N, max_abs_diff=d_diff)
+            check(d_diff <= 1e-12 * float(d_ref.V.abs().max()),
+                  f"{N}^2: halo_diagonal differs by {d_diff}")
+        finally:
+            dist.destroy_process_group()
+    del lc, cond
+    if on_card:
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1563,6 +1943,7 @@ def main() -> int:
     from proton_tpu_torch.methods import fused_assembly as fa
 
     t_start = time.perf_counter()
+    _PHASE_START[0] = t_start
     # 1. device
     name = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
@@ -1591,6 +1972,8 @@ def main() -> int:
              tile_cells=tile, warps=warps, dynamic_smem_bytes=smem,
              blocks_per_sm=fa.blocks_per_sm(cd, fd, dtype))
 
+    phase_done("1-2 device, build")
+
     # 3. kernels against their plain version at the flagship mesh
     mesh = make_poly_mesh(Nx=1024, Ny=1024, device="cuda")
     inputs = fa.pack_inputs(mesh, cell_geometry(mesh))
@@ -1609,6 +1992,8 @@ def main() -> int:
     del inputs
     torch.cuda.empty_cache()
 
+    phase_done("3 kernels")
+
     # 4. main path: launch counts read around it
     r1024, launches, _ = counted_solve("main_path", 1024, 1, 1e-11)
     check(launches > 0, "the 1024^2 solve did not launch K1")
@@ -1619,6 +2004,8 @@ def main() -> int:
 
     # 4c. where a CG iteration's time goes at the main path's shape
     profile_cg(1024, 1, iterations=60)
+
+    phase_done("4 main path")
 
     # 5. checks: H1 order 512 -> 1024, and the JAX CPU gate at 32^2
     r512 = solve(512, 1, 1e-11)
@@ -1631,9 +2018,13 @@ def main() -> int:
     check(abs(r32.iterations - GATE_32[0]) <= 2, "32^2 iterations")
     check(math.isclose(r32.h1_error, GATE_32[1], rel_tol=1e-6), "32^2 H1")
 
+    phase_done("5 checks")
+
     # 6. k=2 on the solve path, with its own launch count
     _, launches_k2, _ = counted_solve("k2_path", 256, 2, 1e-10)
     check(launches_k2 > 0, "the 256^2 k=2 solve did not launch K1")
+
+    phase_done("6 k=2")
 
     # 7. the default path: lean + multigrid at the flagship size
     mg = dict(fitted="lean", precond="mg")
@@ -1676,13 +2067,19 @@ def main() -> int:
           "1024^2: H1 of lean + mg differs from lean + block-Jacobi")
     check(local_diff < 2e-8, f"1024^2: local dofs differ by {local_diff} "
           "from lean + block-Jacobi")
+    # phase 23 holds the Galerkin solves against these rediscretized ones
+    red = {(1024, 1): mg1024}
     del r1024, mg1024, bj1024
     torch.cuda.empty_cache()
+
+    phase_done("7 default path")
 
     # 7b. K1 against its plain version at the shapes the lean and the
     # multigrid paths give it, on every level
     shape_rows, displaced_cells = path_shape_rows(1024, 8, bw, f64_peak)
     check_lean_launches("the lean 1024^2 k=1 solve", cells, displaced_cells)
+
+    phase_done("7b K1 at the path shapes")
 
     # 8. full + multigrid (K1 on every cell of every level) against lean,
     # and the JAX package's lean + multigrid gates
@@ -1715,6 +2112,8 @@ def main() -> int:
         check(math.isclose(r.h1_error, MG_GATES[n][1], rel_tol=1e-6),
               f"{n}^2 lean + mg H1")
 
+    phase_done("8 full + mg")
+
     # 9. k=2 on the default path: the JAX package's gates, then up to the
     # 1024^2 configuration. The H1 error no longer falls at the cubic
     # rate there (see MG_GATES_K2): it must not rise, and its orders are
@@ -1729,10 +2128,12 @@ def main() -> int:
               f"{n}^2 k=2 lean + mg H1")
     h1_k2 = {128: r.h1_error}
     for n in (256, 512):
-        h1_k2[n] = solve(n, 2, 1e-11, **mg).h1_error
+        red[(n, 2)] = solve(n, 2, 1e-11, **mg)
+        h1_k2[n] = red[(n, 2)].h1_error
     r, launches_k2_lean, cells = counted_solve("mg_solve_k2", 1024, 2, 1e-11,
                                                **mg)
     h1_k2[1024] = r.h1_error
+    red[(1024, 2)] = r
     del r
     torch.cuda.empty_cache()
     check(launches_k2_lean > 0, "the lean 1024^2 k=2 solve did not launch K1")
@@ -1744,33 +2145,59 @@ def main() -> int:
         check(h1_k2[n] <= 1.05 * h1_k2[n // 2],
               f"k=2 H1 rises from {n // 2}^2 to {n}^2")
 
+    phase_done("9 k=2 default path")
+
     # 10. where a multigrid-PCG iteration's time goes
-    profile_mg(1024, 1, iterations=20)
+    profile_mg(1024, 1, iterations=10)
     torch.cuda.empty_cache()
+
+    phase_done("10 profile_mg")
 
     # 11-15. the uncut HHO path
     t_uncut = time.perf_counter()
     hho_vs_k1(1024, bw)
+    phase_done("11 hho")
     convergence_table()
+    phase_done("12 convergence")
     poisson_1024()
+    phase_done("13 poisson_1024")
     obstacle_table()
+    phase_done("14 obstacle")
     polymesh_bricks()
+    phase_done("15 polymesh")
     line("uncut_total", seconds=round(time.perf_counter() - t_uncut, 3))
 
     # 16-20. the generic cut path
     t_cut = time.perf_counter()
     cut_preprocess_phase()
+    phase_done("16 cut_preprocess")
     fictdom_generic_phase()
+    phase_done("17 fictdom_generic")
     interface_phase()
+    phase_done("18 interface")
     agglomerate_phase()
+    phase_done("19 agglomerate")
     cuthho_square_phase()
+    phase_done("20 cuthho_square")
     line("cut_total", seconds=round(time.perf_counter() - t_cut, 3))
 
     # 21-22. the geometry families, and the structured-solve options
     t_family = time.perf_counter()
     family_row, launches_family = family_phase(bw, f64_peak)
+    phase_done("21 family")
     options_phase()
+    phase_done("22 options")
     line("family_total", seconds=round(time.perf_counter() - t_family, 3))
+
+    # 23. the Galerkin coarse hierarchy
+    launches_gal, launches_gal_k2 = galerkin_phase(red, displaced_cells)
+    del red
+    torch.cuda.empty_cache()
+    phase_done("23 galerkin")
+
+    # 24. proton_tpu_torch.parallel on one rank over NCCL
+    parallel_phase()
+    phase_done("24 parallel")
 
     line("total", seconds=round(time.perf_counter() - t_start, 3))
     print(smi, flush=True)
@@ -1789,7 +2216,12 @@ def main() -> int:
         dict(name="fused_local_operator_full_mg", launches=launches_full_mg,
              **record, **shape_rows[("full", 512, 1)]),
         dict(name="fused_local_operator_family", launches=launches_family,
-             **record, **family_row)]}), flush=True)
+             **record, **family_row),
+        dict(name="fused_local_operator_galerkin", launches=launches_gal,
+             **record, **shape_rows[("displaced", 1024, 1)]),
+        dict(name="fused_local_operator_k2_galerkin",
+             launches=launches_gal_k2, **record,
+             **shape_rows[("displaced", 1024, 2)])]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}), flush=True)
     return 0

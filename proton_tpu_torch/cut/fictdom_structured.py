@@ -22,10 +22,12 @@ The pipeline:
    per-face block-Jacobi, or Jacobi;
 5. cell recovery and the chunked H1 error.
 
-Not ported: the Galerkin coarse hierarchy (ROADMAP.md, "The Galerkin
-coarse hierarchy"), the precision workarounds (mixed, mg_f32, cg_f64,
-cg_segment), the refuted multigrid experiments and every disk cache
-(ROADMAP.md, "Not ported").
+``mg_galerkin=True`` replaces the rediscretized coarse operators by the
+exact Galerkin ones (band_galerkin_levels), and ``mg_gamma`` > 1 then
+re-visits the coarse problems W-style. Not ported: the precision
+workarounds (mixed, mg_f32, cg_f64, cg_segment), the refuted multigrid
+experiments (W-cycles on the rediscretized hierarchy among them) and
+every disk cache (ROADMAP.md, "Not ported").
 """
 
 from __future__ import annotations
@@ -105,6 +107,7 @@ class StructuredFictdomResult(NamedTuple):
     rel_residual: float
     h1_error: Optional[float]
     timings: dict
+    history: Optional[torch.Tensor] = None  # CG's, with record_history
 
 
 def classify_level(N: int, problem: FictdomProblem, int_refsteps: int, *,
@@ -363,16 +366,66 @@ def build_coarse_levels(N: int, hdi: HHODegreeInfo, problem: FictdomProblem,
             for n in multigrid._mg_sizes(N, mg_coarsest)[1:]}
 
 
+def band_galerkin_levels(levels: Dict[int, LevelData], hdi: HHODegreeInfo,
+                         dtype=DEFAULT_DTYPE
+                         ) -> Dict[int, multigrid.GalerkinLevel]:
+    """{n: GalerkinLevel} of every coarse level of ``levels`` ({n:
+    LevelData}, lean): the exact Galerkin hierarchy, recursed on the host
+    in float64 from the finest level's (S_u, dS, irr_ids) by the
+    multigrid pair-operator engine, then placed on the finest level's
+    device in ``dtype``. The coarsest level carries the host eigh
+    pseudo-inverse of its dense operator. The JAX function's disk cache,
+    keyed by its problem, eta and int_refsteps arguments, is not
+    ported."""
+    sizes = sorted(levels)
+    N = sizes[-1]
+    fine = levels[N]
+    if not isinstance(fine.cond, cells_last.UniformCondCL):
+        raise ValueError("the Galerkin hierarchy is built from the lean "
+                         "system (fitted='lean' or 'uniform')")
+    device = fine.cond.dS.device
+    fbs = bases.face_basis_size(hdi.face_degree)
+    const, corr = multigrid.finest_pair_op(N, fine.S_u, fine.cond.dS,
+                                           fine.irr_ids)
+
+    def put(a, dt=dtype):
+        return torch.as_tensor(np.asarray(a), device=device).to(dt)
+
+    out = {}
+    for nf in reversed(sizes[1:]):
+        nc = nf // 2
+        if nc not in levels:
+            break
+        # the fine level's domain-boundary masking, folded in before the
+        # triple product (what the masked apply and transfers realize)
+        corr = multigrid.mask_pair_op(nf, const, corr)
+        const, corr = multigrid.galerkin_coarsen_pair_op(hdi, nc, const,
+                                                         corr)
+        Bu, cells, cblocks = multigrid.pair_op_cell_face_blocks(nc, const,
+                                                                corr, fbs)
+        factor = (None, None)
+        if nc == sizes[0]:
+            factor = tuple(put(a) for a in multigrid.pinv_factor_host(
+                multigrid.pair_op_dense(nc, const, corr, fbs)))
+        out[nc] = multigrid.GalerkinLevel(
+            put(multigrid.pair_op_kernel(const)), put(corr[0], torch.int64),
+            put(corr[1], torch.int64), put(corr[2]), put(cells, torch.int64),
+            put(cblocks), put(Bu), *factor)
+    return out
+
+
 def level_multigrid(levels: Dict[int, LevelData], hdi: HHODegreeInfo, *,
                     mg_coarsest: int = 8, n_smooth: int = 1,
                     patch_ring: int = 1, patch_colors: int = 1,
                     cheb_degree: int = 4, patch_sweeps: int = 1,
-                    smoother: str = "chebyshev"
-                    ) -> multigrid.Multigrid:
+                    smoother: str = "chebyshev", galerkin=None,
+                    gamma: int = 1) -> multigrid.Multigrid:
     """The V-cycle over ``levels`` ({n: LevelData}, the finest included):
     ``smoother`` (multigrid.build_multigrid: Chebyshev(cheb_degree) over
     block-Jacobi, or damped block-Jacobi or Jacobi), then the
-    interface-patch smoother on the cut cells grown by ``patch_ring``."""
+    interface-patch smoother on the cut cells grown by ``patch_ring``.
+    ``galerkin`` ({n: GalerkinLevel} of band_galerkin_levels) and
+    ``gamma`` go to build_multigrid."""
     N = max(levels)
     lean = {n: isinstance(lev.cond, cells_last.UniformCondCL)
             for n, lev in levels.items()}
@@ -386,7 +439,8 @@ def level_multigrid(levels: Dict[int, LevelData], hdi: HHODegreeInfo, *,
         cheb_degree=cheb_degree, patch_colors=patch_colors,
         patch_sweeps=patch_sweeps, smoother=smoother,
         uniform_per_level={n: (lev.S_u, lev.irr_ids)
-                           for n, lev in levels.items() if lean[n]})
+                           for n, lev in levels.items() if lean[n]},
+        galerkin_per_level=galerkin, gamma=gamma)
 
 
 class FaceSystem(NamedTuple):
@@ -460,9 +514,9 @@ def recover_local(fsys: FaceSystem, level: LevelData, hdi: HHODegreeInfo,
 
 # Options of the JAX solve that the port leaves out: name -> (the value
 # that is accepted, what the option is). The first four are TPU precision
-# workarounds and the next four are experiments the JAX package measured
-# as no gain (ROADMAP.md, "Not ported"); the last is still to port
-# (ROADMAP.md, "The Galerkin coarse hierarchy").
+# workarounds and the last three are experiments the JAX package measured
+# as no gain (ROADMAP.md, "Not ported"), as are W-cycles on the
+# rediscretized hierarchy (mg_gamma > 1 without mg_galerkin).
 _NOT_PORTED = {
     "mixed": (False, "the mixed-precision cut splice"),
     "mg_f32": (False, "the float32 V-cycle"),
@@ -472,8 +526,6 @@ _NOT_PORTED = {
                     "reconstruction one"),
     "mg_deflate": (0, "interface-band deflation"),
     "cheb_ops": ("exact", "a Chebyshev operator pair other than exact"),
-    "mg_gamma": (1, "a W-style cycle"),
-    "mg_galerkin": (False, "the Galerkin coarse hierarchy"),
 }
 
 
@@ -487,11 +539,27 @@ def _check_unported(options: dict) -> None:
                             f"keyword argument {name!r}")
         accepted, what = _NOT_PORTED[name]
         if value is not None and value != accepted:
-            where = ("'The Galerkin coarse hierarchy', still to port"
-                     if name == "mg_galerkin" else "'Not ported'")
             raise NotImplementedError(
                 f"{name}={value!r}: {what} is not ported (ROADMAP.md, "
-                f"{where})")
+                "'Not ported')")
+
+
+def _check_galerkin(mg_galerkin: bool, mg_gamma: int, fitted: str,
+                    precond: str) -> None:
+    """The Galerkin hierarchy needs the lean system and the V-cycle (the
+    JAX package ignores the flag otherwise; the port refuses). W-style
+    cycles run on it alone."""
+    if mg_gamma < 1:
+        raise ValueError(f"mg_gamma={mg_gamma!r}: expected 1 or more")
+    if mg_galerkin and (fitted == "full" or precond != "mg"):
+        raise ValueError("mg_galerkin=True needs precond='mg' and fitted "
+                         "'lean' or 'uniform' (got precond="
+                         f"{precond!r}, fitted={fitted!r})")
+    if mg_gamma > 1 and not mg_galerkin:
+        raise NotImplementedError(
+            f"mg_gamma={mg_gamma!r} without mg_galerkin: a W-style cycle on "
+            "the rediscretized hierarchy is not ported (ROADMAP.md, "
+            "'Not ported')")
 
 
 def solve_fictdom_structured(
@@ -501,8 +569,9 @@ def solve_fictdom_structured(
         fitted: str = "lean", side: int = LOC_NEG, *, mg_coarsest: int = 8,
         n_smooth: int = 1, patch_ring: int = 1, patch_colors: int = 1,
         cheb_degree: int = 4, patch_sweeps: int = 1,
-        mg_smoother: str = "chebyshev", device=None,
-        dtype=DEFAULT_DTYPE, **unported) -> StructuredFictdomResult:
+        mg_smoother: str = "chebyshev", mg_galerkin: bool = False,
+        mg_gamma: int = 1, device=None, dtype=DEFAULT_DTYPE,
+        **unported) -> StructuredFictdomResult:
     """End-to-end fictdom solve on the generated N x N mesh at HHO degree
     ``degree`` (cell degree k+1, face degree k).
 
@@ -515,14 +584,20 @@ def solve_fictdom_structured(
     'block_jacobi' (per-face blocks) or 'jacobi' (the reference's PCG
     preconditioner, solver_cg.hpp:63-144; refused with fitted='lean', as
     in the JAX package). ``fitted``: 'lean', 'uniform' or 'full'
-    (build_level).
+    (build_level). ``mg_galerkin``: the exact Galerkin coarse operators
+    (band_galerkin_levels; their host setup is timed as
+    ``galerkin_setup_s``), with ``mg_gamma`` coarse visits per gap of the
+    top two.
 
     Departures from the JAX solve: ``fitted="uniform"`` builds the lean
     system (the same numbers without the O(N^2) broadcast planes; its
     Jacobi diagonal is the whole operator's, as JAX's from the broadcast
     S); the Jacobi smoother on a lean level takes the whole operator's
-    diagonal, where the JAX package's fails. Options of the JAX solve
-    that are not ported raise NotImplementedError (_check_unported).
+    diagonal, where the JAX package's fails; ``mg_galerkin=True`` with
+    fitted='full' or a precond other than 'mg' raises ValueError, where
+    the JAX package ignores the flag. Options of the JAX solve that are
+    not ported raise NotImplementedError (_check_unported, and mg_gamma
+    > 1 without mg_galerkin).
 
     Runs on CUDA unless ``device="cpu"``; raises without a device when
     CUDA is absent. ``timings`` holds the phase times, each ended by a
@@ -531,6 +606,7 @@ def solve_fictdom_structured(
     _check_precond(precond)
     _check_fitted(fitted)
     _check_unported(unported)
+    _check_galerkin(mg_galerkin, mg_gamma, fitted, precond)
     if mg_smoother not in multigrid.SMOOTHERS:
         raise ValueError(f"mg_smoother={mg_smoother!r}: expected one of "
                          f"{multigrid.SMOOTHERS}")
@@ -567,12 +643,19 @@ def solve_fictdom_structured(
 
     apply_precond = fsys.precond
     if precond == "mg":
+        galerkin = None
+        if mg_galerkin and len(levels) > 1:
+            t0 = time.perf_counter()
+            galerkin = band_galerkin_levels(levels, hdi, dtype=dtype)
+            synchronize(device)
+            timings["galerkin_setup_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         apply_precond = level_multigrid(
             levels, hdi, mg_coarsest=mg_coarsest, n_smooth=n_smooth,
             patch_ring=patch_ring, patch_colors=patch_colors,
             cheb_degree=cheb_degree, patch_sweeps=patch_sweeps,
-            smoother=mg_smoother).precondition
+            smoother=mg_smoother, galerkin=galerkin,
+            gamma=mg_gamma).precondition
         synchronize(device)
         timings["mg_setup_s"] = time.perf_counter() - t0
     del levels
@@ -597,7 +680,8 @@ def solve_fictdom_structured(
         timings["h1_s"] = time.perf_counter() - t0
 
     return StructuredFictdomResult(local, res.iterations, res.exit_reason,
-                                   res.rel_residual, h1, timings)
+                                   res.rel_residual, h1, timings,
+                                   res.history)
 
 
 def fictdom_h1_error_chunked(mesh, geom, batch, cell_loc,

@@ -68,10 +68,14 @@ def _axpy(alpha, x, y):
 
 def conjugated_gradient(apply_A: Callable, b, diag=None,
                         params: CGParams = CGParams(),
-                        precond: Optional[Callable] = None) -> CGResult:
+                        precond: Optional[Callable] = None,
+                        vdot: Optional[Callable] = None) -> CGResult:
     """PCG from x0 = 0 (solver_cg.hpp:63-144). With ``apply_preconditioner``
     and no explicit ``precond``, the Jacobi preconditioner 1/diag is used
-    (``diag`` required)."""
+    (``diag`` required). ``vdot``: the inner product, by default the sum
+    over all members; a solve whose vectors are split over processes
+    passes one that completes the sum across them."""
+    vdot = _vdot if vdot is None else vdot
     if precond is None:
         if params.apply_preconditioner:
             if diag is None:
@@ -87,8 +91,8 @@ def conjugated_gradient(apply_A: Callable, b, diag=None,
     x = _map(torch.zeros_like, b)
     r = b
     d = precond(r)
-    rho = _vdot(r, d)
-    nr0 = torch.sqrt(_vdot(r, r))
+    rho = vdot(r, d)
+    nr0 = torch.sqrt(vdot(r, r))
     hist = None
     if params.record_history:
         hist = torch.full((params.max_iter + 2,), float("nan"),
@@ -97,10 +101,10 @@ def conjugated_gradient(apply_A: Callable, b, diag=None,
     it, exit_code, rel = 0, -1, 1.0
     while exit_code < 0:
         y = apply_A(d)
-        alpha = rho / _vdot(d, y)
+        alpha = rho / vdot(d, y)
         x = _axpy(alpha, d, x)
         r = _axpy(-alpha, y, r)
-        rel_t = torch.sqrt(_vdot(r, r)) / nr0
+        rel_t = torch.sqrt(vdot(r, r)) / nr0
         if hist is not None:
             hist[min(it + 1, len(hist) - 1)] = rel_t
         rel = float(rel_t)
@@ -112,7 +116,7 @@ def conjugated_gradient(apply_A: Callable, b, diag=None,
             exit_code = DIVERGED
         else:
             z = precond(r)
-            rho_new = _vdot(r, z)
+            rho_new = vdot(r, z)
             d = _axpy(rho_new / rho, d, z)
             rho = rho_new
         it += 1

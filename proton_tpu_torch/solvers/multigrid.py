@@ -1,7 +1,7 @@
 """Geometric multigrid preconditioner for the condensed HHO face system
 on the generated mesh (JAX counterpart: proton_tpu/solvers/multigrid.py,
-the cells-last layout with the Chebyshev smoother and the rediscretized
-hierarchy).
+the cells-last layout with the Chebyshev smoother, the rediscretized and
+the Galerkin hierarchies).
 
 - hierarchy: the same discretization reassembled on meshes N, N/2, ...
   down to ``coarsest`` (for cut problems the coarse level is the cutHHO
@@ -18,7 +18,10 @@ hierarchy).
   operator (or damped block-Jacobi or Jacobi), then the interface-patch
   smoother on the cut cells;
 - coarsest level: the operator made dense by applying it to the columns
-  of the identity, then an eigendecomposition pseudo-inverse.
+  of the identity, then an eigendecomposition pseudo-inverse;
+- the Galerkin coarse hierarchy (optional): the exact R A_f P operators,
+  built on the host by the pair-operator engine in float64 and applied
+  on the device as one conv2d per level plus indexed deviation pairs.
 
 Everything the V-cycle indexes with (face positions, masks, transfer
 matrices, Chebyshev coefficients) is built once in ``build_multigrid``:
@@ -297,6 +300,496 @@ def _mg_sizes(N: int, coarsest: int):
     return sizes
 
 
+# ---------------------------------------------------------------------------
+# The Galerkin coarse hierarchy: the pair-operator coarsening engine
+#
+# The rediscretized coarse operator of a cut problem is not R A_f P: the
+# circle cuts the coarse cells at other offsets, so on band-local modes it
+# is softer than the Galerkin product and the coarse correction overshoots.
+# The engine builds the exact Galerkin operators on the host, in float64.
+#
+# A pair operator (PairOp) is a translation-invariant cell-pair stencil
+# {direction (dy, dx): B [nfd, nfd]} plus a sparse list of
+# (row cell, col cell, block) deviations: the cut and displaced cells, the
+# domain-boundary masking and their images. One coarsening step is the
+# exact triple product under the reconstruction-based transfers: a fine
+# child couples its parent and the parent's vertical and horizontal
+# neighbours through the per-cell restriction M_loc of the 12 transfer
+# stencils (skeleton faces at the 0.5 averaging weight). The stencil stays
+# within 5x5 cells and the deviations stay O(band + boundary) per level.
+# ---------------------------------------------------------------------------
+
+
+def _mloc_cells(MH, MV, py: int, px: int):
+    """Per-cell prolongation restriction of the fine child at (py, px) in
+    its coarse parent: [(coarse cell offset (dJ, dI), M [nfd fine, nfd
+    coarse])] over the parent, its vertical and its horizontal
+    neighbour. Fine slot order (bottom, right, top, left), as
+    grid_gather_cl."""
+    fbs = MH.shape[2]
+    nfd = 4 * fbs
+    b, r, t, l = 0, fbs, 2 * fbs, 3 * fbs
+    P, V, H = (np.zeros((nfd, nfd)) for _ in range(3))
+    if py == 0:    # bottom fine face on the coarse skeleton
+        P[b:b + fbs] = 0.5 * MH[0, px]
+        V[b:b + fbs] = 0.5 * MH[2, px]
+        P[t:t + fbs] = MH[1, px]
+    else:          # top fine face on the coarse skeleton
+        P[b:b + fbs] = MH[1, px]
+        P[t:t + fbs] = 0.5 * MH[2, px]
+        V[t:t + fbs] = 0.5 * MH[0, px]
+    if px == 0:    # left fine face on the coarse skeleton
+        P[l:l + fbs] = 0.5 * MV[py, 0]
+        H[l:l + fbs] = 0.5 * MV[py, 2]
+        P[r:r + fbs] = MV[py, 1]
+    else:          # right fine face on the coarse skeleton
+        P[l:l + fbs] = MV[py, 1]
+        P[r:r + fbs] = 0.5 * MV[py, 2]
+        H[r:r + fbs] = 0.5 * MV[py, 0]
+    return [((0, 0), P), ((2 * py - 1, 0), V), ((0, 2 * px - 1), H)]
+
+
+def finest_pair_op(nf: int, S_u, dS, irr):
+    """PairOp (const, (rows, cols, blocks)) of the finest level: the unit
+    cell at direction (0, 0) plus the symmetrized irregular deviations dS
+    [nfd*nfd, Ci] at their cells. The domain-boundary masking is added by
+    mask_pair_op before each coarsening step."""
+    S_u = _host64(S_u)
+    nfd = S_u.shape[0]
+    irr = np.asarray(irr, dtype=np.int64)
+    dSm = np.moveaxis(_host64(dS).reshape(nfd, nfd, len(irr)), -1, 0)
+    dSm = 0.5 * (dSm + np.swapaxes(dSm, 1, 2))
+    return {(0, 0): S_u}, (irr, irr.copy(), dSm)
+
+
+def _host64(a) -> np.ndarray:
+    if isinstance(a, torch.Tensor):
+        a = a.detach().cpu().numpy()
+    return np.asarray(a, dtype=np.float64)
+
+
+def _frozen_slot_mask(n: int, cells, nfd: int):
+    """[len(cells), nfd] multiplier zeroing the slots of domain-edge faces
+    (off-grid coordinates read 0 too: their faces do not exist)."""
+    fbs = nfd // 4
+    jj, ii = cells // n, cells % n
+    m = np.ones((len(cells), nfd))
+    m[jj <= 0, 0:fbs] = 0.0
+    m[ii >= n - 1, fbs:2 * fbs] = 0.0
+    m[jj >= n - 1, 2 * fbs:3 * fbs] = 0.0
+    m[ii <= 0, 3 * fbs:4 * fbs] = 0.0
+    return m
+
+
+def mask_pair_op(n: int, const: dict, corr):
+    """The deviation list with the level's domain-boundary masking folded
+    in: const + corr' = Z (const + corr) Z, Z zeroing the frozen face
+    dofs (the energy form of the masked apply and the masked transfers).
+    Needed before every coarsening step."""
+    rows, cols = np.asarray(corr[0]), np.asarray(corr[1])
+    blocks = np.asarray(corr[2], np.float64)
+    nfd = next(iter(const.values())).shape[0]
+    mr = _frozen_slot_mask(n, rows, nfd)
+    mc = _frozen_slot_mask(n, cols, nfd)
+    out_r, out_c = [rows], [cols]
+    out_b = [blocks * mr[:, :, None] * mc[:, None, :]]
+
+    # Z const Z - const on the pairs that touch the edge
+    w = max(max(abs(dy), abs(dx)) for dy, dx in const) + 1
+    cells = np.arange(n * n)
+    jj, ii = cells // n, cells % n
+    fc = cells[(jj < w) | (jj >= n - w) | (ii < w) | (ii >= n - w)]
+    fj, fi = fc // n, fc % n
+    for (dy, dx), B in const.items():
+        cj, ci = fj + dy, fi + dx
+        ok = (cj >= 0) & (cj < n) & (ci >= 0) & (ci < n)
+        if not ok.any():
+            continue
+        rcell, ccell = fc[ok], (cj * n + ci)[ok]
+        m1 = _frozen_slot_mask(n, rcell, nfd)
+        m2 = _frozen_slot_mask(n, ccell, nfd)
+        delta = B[None] * (m1[:, :, None] * m2[:, None, :]) - B[None]
+        nz = np.abs(delta).max(axis=(1, 2)) > 0
+        if nz.any():
+            out_r.append(rcell[nz])
+            out_c.append(ccell[nz])
+            out_b.append(delta[nz])
+    return _aggregate_pairs(np.concatenate(out_r), np.concatenate(out_c),
+                            np.concatenate(out_b, axis=0), n)
+
+
+def _aggregate_pairs(rows, cols, blocks, n):
+    """Sum the blocks of repeated (row, col) pairs: sorted unique pairs.
+    Each sum runs in input order (a stable sort, then reduceat), as an
+    unbuffered np.add.at would."""
+    key = rows.astype(np.int64) * (n * n) + cols.astype(np.int64)
+    order = np.argsort(key, kind="stable")
+    key = key[order]
+    starts = np.flatnonzero(np.r_[True, key[1:] != key[:-1]])
+    uk = key[starts]
+    agg = np.add.reduceat(np.asarray(blocks)[order], starts, axis=0)
+    return uk // (n * n), uk % (n * n), agg
+
+
+def galerkin_coarsen_pair_op(hdi: HHODegreeInfo, nc: int, const_f: dict,
+                             corr_f, domain: float = 1.0):
+    """One exact Galerkin coarsening step of a PairOp, fine nf = 2 nc ->
+    coarse nc, under the reconstruction-based transfers (their slot
+    matrices from _transfer_slot_matrices, on the CPU in float64).
+    Returns (const_c, (rows, cols, blocks))."""
+    MH, MV = (m.numpy() for m in _transfer_slot_matrices(
+        hdi, domain / nc, torch.float64, device=torch.device("cpu")))
+    nfd = 4 * MH.shape[2]
+    nf = 2 * nc
+    mlocs = {(py, px): _mloc_cells(MH, MV, py, px)
+             for py in (0, 1) for px in (0, 1)}
+
+    # the translation-invariant part
+    const_c = {}
+    for (py, px), ml_a in mlocs.items():
+        for (dy, dx), B in const_f.items():
+            qy, qx = (py + dy) % 2, (px + dx) % 2
+            dPy, dPx = (py + dy) // 2, (px + dx) // 2
+            for ca, Ma in ml_a:
+                for cb, Mb in mlocs[(qy, qx)]:
+                    d = (dPy + cb[0] - ca[0], dPx + cb[1] - ca[1])
+                    const_c[d] = const_c.get(d, 0.0) + Ma.T @ B @ Mb
+
+    # the deviations
+    out_r, out_c, out_b = [], [], []
+
+    def coarsen_pairs(ja, ia, jb, ib, blocks_f):
+        """Triple product of explicit fine pairs (coordinates may be off
+        the grid); coarse row or column cells off the grid are dropped,
+        as the masked transfers drop them."""
+        pa_y, pa_x, pb_y, pb_x = ja % 2, ia % 2, jb % 2, ib % 2
+        Pa_j, Pa_i, Pb_j, Pb_i = ja // 2, ia // 2, jb // 2, ib // 2
+        for (py, px), ml_a in mlocs.items():
+            for (qy, qx), ml_b in mlocs.items():
+                sel = (pa_y == py) & (pa_x == px) & (pb_y == qy) & \
+                    (pb_x == qx)
+                if not sel.any():
+                    continue
+                Bsel = blocks_f[sel]
+                for ca, Ma in ml_a:
+                    rj, ri = Pa_j[sel] + ca[0], Pa_i[sel] + ca[1]
+                    va = (rj >= 0) & (rj < nc) & (ri >= 0) & (ri < nc)
+                    for cb, Mb in ml_b:
+                        cj, ci = Pb_j[sel] + cb[0], Pb_i[sel] + cb[1]
+                        ok = va & (cj >= 0) & (cj < nc) & (ci >= 0) & \
+                            (ci < nc)
+                        if not ok.any():
+                            continue
+                        out_r.append((rj * nc + ri)[ok])
+                        out_c.append((cj * nc + ci)[ok])
+                        out_b.append(Ma.T @ Bsel[ok] @ Mb)
+
+    rows_f, cols_f = np.asarray(corr_f[0]), np.asarray(corr_f[1])
+    coarsen_pairs(rows_f // nf, rows_f % nf, cols_f // nf, cols_f % nf,
+                  np.asarray(corr_f[2], np.float64))
+
+    # phantom pairs: near the edge the translation-invariant stencil
+    # includes fine pairs (fa, fb) with fa or fb off the grid while the
+    # coarse row and column cells are on it; emit their negatives
+    w = max(max(abs(dy), abs(dx)) for dy, dx in const_f) + 2
+    coords = np.arange(-1, nf + 1)
+    JA, IA = np.meshgrid(coords, coords, indexing="ij")
+    frame = (JA < w) | (JA >= nf - w) | (IA < w) | (IA >= nf - w)
+    ja0, ia0 = JA[frame].ravel(), IA[frame].ravel()
+    for (dy, dx), B in const_f.items():
+        jb0, ib0 = ja0 + dy, ia0 + dx
+        a_on = (ja0 >= 0) & (ja0 < nf) & (ia0 >= 0) & (ia0 < nf)
+        b_on = (jb0 >= 0) & (jb0 < nf) & (ib0 >= 0) & (ib0 < nf)
+        bad = ~(a_on & b_on)
+        if bad.any():
+            coarsen_pairs(ja0[bad], ia0[bad], jb0[bad], ib0[bad],
+                          np.broadcast_to(-B, (int(bad.sum()),) + B.shape))
+
+    if not out_r:
+        return const_c, (np.zeros(0, np.int64), np.zeros(0, np.int64),
+                         np.zeros((0, nfd, nfd)))
+    return const_c, _aggregate_pairs(np.concatenate(out_r),
+                                     np.concatenate(out_c),
+                                     np.concatenate(out_b, axis=0), nc)
+
+
+class GalerkinLevel(NamedTuple):
+    """One coarse level's Galerkin operator and its patch blocks, as
+    tensors on the solve's device. The coarsest level also carries the
+    host float64 eigh pseudo-inverse factor of its dense operator."""
+
+    kernel: torch.Tensor   # [nfd, nfd, k, k] constant stencil, OIHW
+    rows: torch.Tensor     # [P] deviation pair row cells
+    cols: torch.Tensor     # [P] deviation pair column cells
+    blocks: torch.Tensor   # [P, nfd, nfd]
+    cells: torch.Tensor    # [m] sorted cells whose 4-face block deviates
+    cblocks: torch.Tensor  # [m, nfd, nfd] their exact 4-face restrictions
+    Bu_cell: torch.Tensor  # [nfd, nfd] the uniform interior restriction
+    coarse_Q: Optional[torch.Tensor] = None
+    coarse_winv: Optional[torch.Tensor] = None
+
+
+def pair_op_diag_data(nc: int, const: dict, corr, fbs: int):
+    """The level's assembled face-diagonal data: the uniform interior H
+    and V face blocks BHu, BVu [fbs, fbs] and the per-face deltas
+    ((hj, hi, dBH), (vj, vi, dBV)) at the free faces the deviations
+    touch. No solve reads them; kept as the JAX package's diagnostic."""
+    nfd = 4 * fbs
+    b, r, t, l = (slice(0, fbs), slice(fbs, 2 * fbs),
+                  slice(2 * fbs, 3 * fbs), slice(3 * fbs, 4 * fbs))
+    C00 = const[(0, 0)]
+    C10 = const.get((1, 0), np.zeros((nfd, nfd)))
+    C01 = const.get((0, 1), np.zeros((nfd, nfd)))
+    BHu = C00[t, t] + C00[b, b] + C10[t, b] + C10[t, b].T
+    BVu = C00[l, l] + C00[r, r] + C01[r, l] + C01[r, l].T
+
+    rows, cols, blocks = (np.asarray(a) for a in corr)
+    ja, ia, jb, ib = rows // nc, rows % nc, cols // nc, cols % nc
+    hkeys, hvals, vkeys, vvals = [], [], [], []
+    diag = rows == cols
+    if diag.any():
+        jj, ii, B = ja[diag], ia[diag], blocks[diag]
+        hkeys += [jj * nc + ii, (jj + 1) * nc + ii]
+        hvals += [B[:, b, b], B[:, t, t]]
+        vkeys += [jj * (nc + 1) + ii, jj * (nc + 1) + ii + 1]
+        vvals += [B[:, l, l], B[:, r, r]]
+    for sel, key, blk in (
+            ((jb == ja + 1) & (ib == ia), lambda j, i: (j + 1) * nc + i,
+             (t, b)),
+            ((jb == ja - 1) & (ib == ia), lambda j, i: j * nc + i, (b, t))):
+        if sel.any():
+            hkeys.append(key(ja[sel], ia[sel]))
+            hvals.append(blocks[sel][:, blk[0], blk[1]])
+    for sel, key, blk in (
+            ((ib == ia + 1) & (jb == ja),
+             lambda j, i: j * (nc + 1) + i + 1, (r, l)),
+            ((ib == ia - 1) & (jb == ja), lambda j, i: j * (nc + 1) + i,
+             (l, r))):
+        if sel.any():
+            vkeys.append(key(ja[sel], ia[sel]))
+            vvals.append(blocks[sel][:, blk[0], blk[1]])
+
+    def agg(keys, vals, W, frozen):
+        if not keys:
+            return (np.zeros(0, np.int64), np.zeros(0, np.int64),
+                    np.zeros((0, fbs, fbs)))
+        k = np.concatenate(keys)
+        v = np.concatenate(vals, axis=0)
+        ok = ~frozen(k)
+        uk, inv = np.unique(k[ok], return_inverse=True)
+        out = np.zeros((len(uk), fbs, fbs))
+        np.add.at(out, inv.reshape(-1), v[ok])
+        return uk // W, uk % W, out
+
+    fH = agg(hkeys, hvals, nc, lambda k: (k // nc == 0) | (k // nc == nc))
+    fV = agg(vkeys, vvals, nc + 1,
+             lambda k: (k % (nc + 1) == 0) | (k % (nc + 1) == nc))
+    return BHu, BVu, fH, fV
+
+
+def pair_op_cell_face_blocks(nc: int, const: dict, corr, fbs: int):
+    """Exact 4-face restrictions of the pair operator: the uniform
+    interior cell's block B_u [nfd, nfd] and (cells, blocks) for every
+    cell whose restriction deviates (within one cell of a deviation pair
+    or of the domain edge). These are the local solves of the Galerkin
+    patch smoother. Vectorized over the cells: for each slot pair, each
+    owner pair adds its constant block and its deviation block (looked up
+    among the sorted pair keys)."""
+    nfd = 4 * fbs
+    rows, cols, blocks = (np.asarray(a) for a in corr)
+    keys = rows.astype(np.int64) * (nc * nc) + cols
+    order = np.argsort(keys, kind="stable")
+    keys, blocks = keys[order], blocks[order]
+    # the owners of slot s of a cell: itself and its neighbour off[s]
+    # through slot opp[s]
+    off = ((-1, 0), (0, 1), (1, 0), (0, -1))
+    opp = (2, 3, 0, 1)
+
+    def on_grid(j, i):
+        return (j >= 0) & (j < nc) & (i >= 0) & (i < nc)
+
+    def restrictions(cells):
+        j, i = cells // nc, cells % nc
+        B = np.zeros((len(cells), nfd, nfd))
+        for s1 in range(4):
+            for s2 in range(4):
+                acc = B[:, s1 * fbs:(s1 + 1) * fbs, s2 * fbs:(s2 + 1) * fbs]
+                for da, sa in (((0, 0), s1), (off[s1], opp[s1])):
+                    ja, ia = j + da[0], i + da[1]
+                    for db, sb in (((0, 0), s2), (off[s2], opp[s2])):
+                        jb, ib = j + db[0], i + db[1]
+                        ok = on_grid(ja, ia) & on_grid(jb, ib)
+                        if not ok.any():
+                            continue
+                        blk = const.get((db[0] - da[0], db[1] - da[1]))
+                        if blk is not None:
+                            acc[ok] += blk[sa * fbs:(sa + 1) * fbs,
+                                           sb * fbs:(sb + 1) * fbs]
+                        if len(keys):
+                            k = (ja * nc + ia) * (nc * nc) + jb * nc + ib
+                            pos = np.minimum(np.searchsorted(keys, k),
+                                             len(keys) - 1)
+                            hit = ok & (keys[pos] == k)
+                            acc[hit] += blocks[pos[hit]][
+                                :, sa * fbs:(sa + 1) * fbs,
+                                sb * fbs:(sb + 1) * fbs]
+        return B
+
+    # the deviating cells: the 3 x 3 neighbourhoods of the pairs' cells,
+    # and the edge frame
+    pc = np.unique(np.concatenate([rows, cols])).astype(np.int64)
+    steps = [(dj, di) for dj in (-1, 0, 1) for di in (-1, 0, 1)]
+    near = [(pc // nc + dj) * nc + pc % nc + di for dj, di in steps]
+    ok = [on_grid(pc // nc + dj, pc % nc + di) for dj, di in steps]
+    allc = np.arange(nc * nc)
+    jj, ii = allc // nc, allc % nc
+    frame = allc[(jj == 0) | (jj == nc - 1) | (ii == 0) | (ii == nc - 1)]
+    cells = np.unique(np.concatenate([c[m] for c, m in zip(near, ok)] +
+                                     [frame]))
+    # the uniform block from the first interior cell that does not
+    # deviate; on a grid where all do, the centre cell's
+    interior = allc[(jj >= 1) & (jj <= nc - 2) & (ii >= 1) & (ii <= nc - 2)]
+    free = np.setdiff1d(interior, cells)
+    ref = free[:1] if len(free) else np.array([(nc // 2) * nc + nc // 2])
+    B_u = restrictions(ref)[0]
+    out = restrictions(cells) if len(cells) else np.zeros((0, nfd, nfd))
+    return B_u, cells, out
+
+
+def pair_op_kernel(const: dict, dtype=np.float64):
+    """The constant stencil as a conv kernel [nfd out, nfd in, k, k] (odd
+    k, centre = direction (0, 0)): out[s, J, I] = sum K[s, s2, c+dy, c+dx]
+    xl[s2, J+dy, I+dx], a cross-correlation; zero padding drops the
+    off-grid pairs exactly."""
+    rmax = max(max(abs(dy), abs(dx)) for dy, dx in const)
+    nfd = next(iter(const.values())).shape[0]
+    K = np.zeros((nfd, nfd, 2 * rmax + 1, 2 * rmax + 1), dtype)
+    for (dy, dx), B in const.items():
+        K[:, :, rmax + dy, rmax + dx] = B
+    return K
+
+
+def pair_op_dense(nc: int, const: dict, corr, fbs: int):
+    """The pair operator made dense on the nc x nc grid's face dofs, in
+    the flat order of _flatten ([H (m, j, i) | V (m, j, i)]); frozen rows
+    and columns get the identity."""
+    nH = fbs * (nc + 1) * nc
+    ntot = nH + fbs * nc * (nc + 1)
+    A = np.zeros((ntot, ntot))
+    m = np.arange(fbs)
+
+    def face_dofs(cells, slot):
+        """[len, fbs] flat dofs of slot ``slot`` of each cell, -1 on
+        frozen (domain-edge) faces."""
+        j, i = cells // nc, cells % nc
+        fj, fi = (j + (slot == 2), i + (slot == 1))
+        if slot in (0, 2):
+            d = m[None, :] * (nc + 1) * nc + (fj * nc + fi)[:, None]
+            bad = (fj == 0) | (fj == nc)
+        else:
+            d = nH + m[None, :] * nc * (nc + 1) + \
+                (fj * (nc + 1) + fi)[:, None]
+            bad = (fi == 0) | (fi == nc)
+        d[bad] = -1
+        return d
+
+    def add_blocks(ca, cb, B):
+        B = np.broadcast_to(B, (len(ca),) + B.shape[-2:])
+        for s1 in range(4):
+            d1 = face_dofs(ca, s1)
+            for s2 in range(4):
+                d2 = face_dofs(cb, s2)
+                ok = (d1[:, 0] >= 0) & (d2[:, 0] >= 0)
+                if ok.any():
+                    np.add.at(A, (d1[ok][:, :, None], d2[ok][:, None, :]),
+                              B[ok][:, s1 * fbs:(s1 + 1) * fbs,
+                                    s2 * fbs:(s2 + 1) * fbs])
+
+    cells = np.arange(nc * nc)
+    jj, ii = cells // nc, cells % nc
+    for (dy, dx), B in const.items():
+        ok = (jj + dy >= 0) & (jj + dy < nc) & (ii + dx >= 0) & \
+            (ii + dx < nc)
+        add_blocks(cells[ok], cells[ok] + dy * nc + dx, np.asarray(B))
+    rows, cols, blocks = (np.asarray(a) for a in corr)
+    if len(rows):
+        add_blocks(rows, cols, blocks)
+    frozen = np.abs(A).sum(0) + np.abs(A).sum(1) == 0
+    A[frozen, frozen] = 1.0
+    return A
+
+
+def pinv_factor_host(A):
+    """(Q, winv) of the eigh pseudo-inverse of a dense symmetric float64
+    operator on the host, cutoff 50 n eps max|w|: the Galerkin coarsest
+    operator is singular (the composed masked prolongation has a small
+    kernel), and restricted residuals are orthogonal to that kernel."""
+    w, Q = np.linalg.eigh(0.5 * (A + A.T))
+    tol = 50.0 * len(w) * np.finfo(np.float64).eps * np.abs(w).max()
+    return Q, np.where(w > tol, 1.0 / np.where(w > tol, w, 1.0), 0.0)
+
+
+# ---------------------------------------------------------------------------
+# The Galerkin operator and its patch blocks on the device
+# ---------------------------------------------------------------------------
+
+
+def make_galerkin_operator_cl(sys: StructuredFaceSystem, kernel, rows=None,
+                              cols=None, blocks=None):
+    """Matrix-free pair-operator apply on GridVecCL grids: the cells' slot
+    planes [nfd, Ny, Nx], one conv2d for the constant stencil (a
+    cross-correlation with zero padding), the deviation pairs as a
+    gather, a batched product and an accumulating index_add_ (rows
+    repeat), the face scatter, then the masks and the frozen identity
+    (the contract of make_structured_operator_cl)."""
+    nfd, Ny, Nx = 4 * sys.fbs, sys.Ny, sys.Nx
+    pad = (kernel.shape[-1] - 1) // 2
+    has_pairs = rows is not None and rows.shape[0] > 0
+    freeH, freeV = sys.freeH[None], sys.freeV[None]
+
+    def apply_S(x: GridVecCL) -> GridVecCL:
+        xl = cl.grid_gather_cl(sys, GridVecCL(x.H * freeH, x.V * freeV))
+        with torch.profiler.record_function("galerkin.conv"):
+            c = torch.nn.functional.conv2d(
+                xl.reshape(1, nfd, Ny, Nx), kernel,
+                padding=pad).reshape(nfd, Ny * Nx)
+        if has_pairs:
+            with torch.profiler.record_function("galerkin.pairs"):
+                yp = torch.bmm(blocks, xl[:, cols].T[:, :, None])[:, :, 0]
+                c.index_add_(1, rows, yp.T)
+        y = cl.grid_scatter_cl(sys, c)
+        return GridVecCL(torch.where(freeH, y.H, x.H),
+                         torch.where(freeV, y.V, x.V))
+
+    return apply_S
+
+
+def galerkin_patch_setup(sys: StructuredFaceSystem, gal: GalerkinLevel,
+                         patch_ids, dtype):
+    """uniform_patch_setup_lean's Galerkin twin, (Binv, wH, wV): each patch
+    cell's local block is the exact 4-face restriction of the Galerkin
+    operator (pair_op_cell_face_blocks), masked at frozen faces and
+    inverted."""
+    fbs, Nx = sys.fbs, sys.Nx
+    nfd = 4 * fbs
+    dev = sys.freeH.device
+    pids_np = cl._ids_np(patch_ids)
+    pids = torch.as_tensor(pids_np, device=dev)
+    B = gal.Bu_cell.to(dtype).expand(len(pids_np), nfd, nfd)
+    if gal.cells.shape[0] > 0:
+        pos = torch.clamp(torch.searchsorted(gal.cells, pids), 0,
+                          gal.cells.shape[0] - 1)
+        hit = (gal.cells[pos] == pids)[:, None, None]
+        B = torch.where(hit, gal.cblocks.to(dtype)[pos], B)
+    jj, ii = pids // Nx, pids % Nx
+    free_slot = torch.stack([sys.freeH[jj, ii], sys.freeV[jj, ii + 1],
+                             sys.freeH[jj + 1, ii], sys.freeV[jj, ii]], dim=1)
+    m = free_slot.repeat_interleave(fbs, dim=1).to(dtype)
+    eye = torch.eye(nfd, dtype=dtype, device=dev)
+    B = B * (m[:, :, None] * m[:, None, :]) + eye * (1.0 - m)[:, None, :]
+    return (torch.linalg.inv(B), *cl._patch_weights(sys, pids_np, dtype))
+
+
 class MGLevel(NamedTuple):
     sys: StructuredFaceSystem
     apply_S: Callable
@@ -312,6 +805,10 @@ class Multigrid(NamedTuple):
     coarse_factor: tuple           # (Q, winv) of _coarse_factor
     coarse_shape: tuple
     n_smooth: int
+    gamma: int = 1                 # 1: V-cycle; > 1: the coarse problem of
+    #                                the top ``gamma_depth`` gaps is solved
+    #                                gamma times (W-style re-visits)
+    gamma_depth: int = 2
 
     def precondition(self, r: GridVecCL) -> GridVecCL:
         return _vcycle(self, 0, r)
@@ -360,7 +857,15 @@ def _vcycle(mg: Multigrid, lvl: int, b: GridVecCL) -> GridVecCL:
         return x
 
     x = smooth(None, level.smoothers)
-    ec = _vcycle(mg, lvl + 1, level.restrict(_sub(b, level.apply_S(x))))
+    rc = level.restrict(_sub(b, level.apply_S(x)))
+    ec = _vcycle(mg, lvl + 1, rc)
+    if mg.gamma > 1 and lvl < mg.gamma_depth and \
+            lvl + 1 < len(mg.levels) - 1:
+        # W-style: re-visit the coarse problem on its residual
+        coarse = mg.levels[lvl + 1]
+        for _ in range(mg.gamma - 1):
+            ec = _add(ec, _vcycle(mg, lvl + 1,
+                                  _sub(rc, coarse.apply_S(ec))))
     x = _add(x, level.prolong(ec))
     return smooth(x, tuple(reversed(level.smoothers)))
 
@@ -391,7 +896,8 @@ def build_multigrid(N: int, fbs: int, S_per_level, hdi: HHODegreeInfo,
                     cut_ids_per_level=None, patch_sweeps: int = 1,
                     cheb_degree: int = 4, patch_colors: int = 1,
                     uniform_per_level=None, smoother: str = "chebyshev",
-                    omega: float = 0.67) -> Multigrid:
+                    omega: float = 0.67, galerkin_per_level=None,
+                    gamma: int = 1) -> Multigrid:
     """The V-cycle over meshes N, N/2, ..., coarsest of the unit square,
     on cells-last grids (the JAX package's layout="cl", cheb_ops="exact").
 
@@ -409,7 +915,15 @@ def build_multigrid(N: int, fbs: int, S_per_level, hdi: HHODegreeInfo,
     at the irregular columns (cells_last.uniform_deltas takes it from a
     full S); without an entry S_n is the full [nfd*nfd, C_n] array.
     ``cut_ids_per_level`` ({n: patch cell ids}) turns on the
-    interface-patch smoother on each level."""
+    interface-patch smoother on each level.
+
+    ``galerkin_per_level`` ({n: GalerkinLevel}, the coarse levels of
+    band_galerkin_levels) makes level n's operator the exact Galerkin one:
+    its residual applies, its Chebyshev polynomial and its patch blocks
+    (galerkin_patch_setup) use it, while the block-Jacobi or Jacobi base
+    stays the rediscretized one of S_per_level. A coarsest entry with
+    coarse_Q replaces the dense pseudo-inverse. ``gamma`` > 1 re-visits the
+    coarse problem of the top two gaps (Multigrid.gamma)."""
     if smoother not in SMOOTHERS:
         raise ValueError(f"smoother={smoother!r}: expected one of "
                          f"{SMOOTHERS}")
@@ -418,6 +932,7 @@ def build_multigrid(N: int, fbs: int, S_per_level, hdi: HHODegreeInfo,
     systems = {n: make_structured_system(n, n, fbs, device=device)
                for n in sizes}
     uniform_per_level = uniform_per_level or {}
+    galerkin_per_level = galerkin_per_level or {}
 
     levels = []
     for i, n in enumerate(sizes):
@@ -444,6 +959,10 @@ def build_multigrid(N: int, fbs: int, S_per_level, hdi: HHODegreeInfo,
                 if smoother == "jacobi" else \
                 cl.block_jacobi_preconditioner_cl(sys_n, S_n)
 
+        gal = galerkin_per_level.get(n)
+        if gal is not None:
+            apply_S = make_galerkin_operator_cl(sys_n, gal.kernel, gal.rows,
+                                                gal.cols, gal.blocks)
         if smoother == "chebyshev":
             lam = estimate_lambda_max(apply_S, base,
                                       _zeros_grid(sys_n, dtype))
@@ -456,7 +975,11 @@ def build_multigrid(N: int, fbs: int, S_per_level, hdi: HHODegreeInfo,
         if len(patch_ids) > 0:
             patches = []
             for g in cl.patch_color_groups(patch_ids, n, patch_colors):
-                if S_u is not None:
+                if gal is not None:
+                    patches.append(cl.make_patch_apply(
+                        sys_n, g, *galerkin_patch_setup(sys_n, gal, g,
+                                                        dtype)))
+                elif S_u is not None:
                     patches.append(cl.make_patch_apply(
                         sys_n, g, *cl.uniform_patch_setup_lean(
                             sys_n, S_u, dS, irr, g, dtype)))
@@ -477,12 +1000,17 @@ def build_multigrid(N: int, fbs: int, S_per_level, hdi: HHODegreeInfo,
                 sys_n, systems[nc], hdi, 1.0 / nc, dtype, mats=mats)
         levels.append(MGLevel(sys_n, apply_S, smoothers, prol, restrict))
 
-    # the coarsest operator, made dense column by column
     nco = sizes[-1]
     shapes = ((fbs, nco + 1, nco), (fbs, nco, nco + 1))
-    ntot = int(np.prod(shapes[0]) + np.prod(shapes[1]))
-    eye = torch.eye(ntot, dtype=dtype, device=device)
-    apply_c = levels[-1].apply_S
-    Ac = torch.stack([_flatten(apply_c(_unflatten(eye[j], shapes)))
-                      for j in range(ntot)], dim=1)
-    return Multigrid(levels, _coarse_factor(Ac), shapes, n_smooth)
+    gal_co = galerkin_per_level.get(nco)
+    if gal_co is not None and gal_co.coarse_Q is not None:
+        factor = (gal_co.coarse_Q, gal_co.coarse_winv)
+    else:
+        # the coarsest operator, made dense column by column
+        ntot = int(np.prod(shapes[0]) + np.prod(shapes[1]))
+        eye = torch.eye(ntot, dtype=dtype, device=device)
+        apply_c = levels[-1].apply_S
+        factor = _coarse_factor(torch.stack(
+            [_flatten(apply_c(_unflatten(eye[j], shapes)))
+             for j in range(ntot)], dim=1))
+    return Multigrid(levels, factor, shapes, n_smooth, gamma)

@@ -33,7 +33,8 @@ def test_every_module_imports_without_jax():
                  "cut.interface_problem", "cut.agglomerate",
                  "io.debug_plots", "utils.debug", "apps.cuthho_square",
                  "methods.structured", "cut.batched",
-                 "apps.fictdom_family"):
+                 "apps.fictdom_family", "parallel.sharding",
+                 "parallel.halo"):
         assert "proton_tpu_torch." + name in mods
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
@@ -119,3 +120,17 @@ def test_cut_entry_points_raise_without_cuda(monkeypatch, tmp_path):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
     assert list(tmp_path.iterdir()) == []
+
+
+def test_galerkin_and_parallel_entry_points_raise_without_cuda(monkeypatch):
+    """No device given and no CUDA: the Galerkin solve and the process
+    group of proton_tpu_torch.parallel raise (the parallel package picks
+    NCCL for CUDA, gloo only when the CPU is asked for)."""
+    from proton_tpu_torch.parallel import sharding
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: fs.solve_fictdom_structured(8, 1, mg_galerkin=True,
+                                                     mg_gamma=2),
+                 lambda: sharding.make_device_mesh()):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()

@@ -199,15 +199,20 @@ def test_end_to_end_gates(N, k):
 
 def test_jacobi_solve_and_unported_options():
     """The Jacobi-preconditioned solve converges to the same H1 error;
-    options that are not ported raise NotImplementedError."""
+    options that are not ported raise NotImplementedError (mg_gamma > 1
+    without mg_galerkin: W-cycles on the rediscretized hierarchy); the
+    Galerkin hierarchy on the full system raises ValueError."""
     r = fs.solve_fictdom_structured(16, 1, precond="jacobi", fitted="full",
                                     cg_params=cg.CGParams(**_cgp()),
                                     device="cpu")
     assert r.exit_reason == cg.CONVERGED
     assert np.isclose(r.h1_error, GATES[(16, 1)][1], rtol=1e-6)
-    for unported in (dict(mg_galerkin=True), dict(cg_segment=25)):
+    for unported in (dict(mg_gamma=2), dict(cg_segment=25)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             fs.solve_fictdom_structured(8, 1, device="cpu", **unported)
+    with pytest.raises(ValueError, match="mg_galerkin"):
+        fs.solve_fictdom_structured(8, 1, fitted="full", mg_galerkin=True,
+                                    device="cpu")
 
 
 @pytest.fixture(scope="module")
