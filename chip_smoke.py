@@ -102,8 +102,8 @@ options:
     tol 1e-6 (all converged, no overflow, no bad cut; K1 launched once per
     geometry on all 1,048,576 cells, the count read around the call;
     iterations, ms per iteration, seconds per geometry by phase, peak
-    memory); the app at its documented widths (-N 256 -k 1) with 16 of
-    the documented 64 geometries (-B 16);
+    memory); the app at its documented widths (-N 256 -k 1) with 8 of
+    the documented 64 geometries (-B 8);
     the ellipse and flower families at 256^2 B=2; two geometries at 256^2,
     tol 1e-10, each equal to the structured solve of the same circle (H1
     rtol 1e-8);
@@ -123,7 +123,7 @@ path's shapes) and parallel/ (torch.distributed; no kernel of its own):
     per level, peak memory and K1's launches, each held against the
     rediscretized solve of the same N, k and tol, reused from phase 9
     (local dofs within 1e-6 of max|local|; H1 rtol 1e-4, 5e-4 at
-    1024^2); mg_gamma=2 at 256^2 k=2; torch.profiler over 20 Galerkin-MG
+    1024^2); torch.profiler over 20 Galerkin-MG
     iterations at 1024^2 k=2 (`[profile_galerkin*]`: device time by
     region and level, the Galerkin apply's conv and pairs by level,
     launches, busy share, one scalar read and no host-to-device copy per
@@ -134,15 +134,30 @@ path's shapes) and parallel/ (torch.distributed; no kernel of its own):
     temporary directory): sharded_solve and solve_condensed_halo at 512^2
     k=1 against the single-process solves (equal iterations, 1e-9),
     halo_diagonal against structured_diagonal. Exchanges between ranks
-    are held only by the CPU tests (gloo, 2 and 4 ranks).
+    are held only by the CPU tests (gloo, 2 and 4 ranks);
+
+the bench entry point (proton_tpu_torch/bench.py; K1 on every cell of its
+timed assembly):
+
+25. [bench] run_bench(1024, 1) in this process at PROTON_BENCH_TOL=1e-11,
+    with K1's launches and their cell counts read around it: two on all
+    1,048,576 cells (the untimed and the timed assembly) and the lean
+    path's (one cell and the displaced cells of every level, the counts
+    phase 7b compared); CG exit 0, iterations within 2 of phase 7's
+    solve and H1 within rtol 1e-6 of it (the same system and solver);
+    then `python -m proton_tpu_torch.bench` in the stock form at
+    PROTON_BENCH_N=128 as a subprocess: exit 0, the k=1 line, then the
+    last line with the k=2 fields under "k2".
 
 Every phase prints its seconds (`[phase]`). To fit the 1,000 s budget,
-depth was cut: the fictdom_family app runs at -B 16 (was 64) and its
+depth was cut: the fictdom_family app runs at -B 8 (was 64) and its
 ellipse and flower families at B=2 (was 4); phase 17's order is taken
 from 128^2 to 256^2 (the 512^2 solve is gone); phases 10 and 18 profile
-10 iterations (was 20); and phase 23 reuses the rediscretized solutions
-of phases 7 and 9 instead of solving again, and profiles on the 1024^2
-k=2 solve's Galerkin hierarchy.
+10 iterations (was 20); phase 23 reuses the rediscretized solutions of
+phases 7 and 9 instead of solving again, profiles on the 1024^2 k=2
+solve's Galerkin hierarchy, and runs mg_gamma=2 only at the JAX gate's
+32^2 (tools/galerkin_history.py --gamma 2 measures it at 256^2 and
+512^2).
 
 Any failed check raises, so the script exits non-zero and prints no
 result. Without a CUDA device it exits non-zero before any phase. The
@@ -152,8 +167,9 @@ lean path's shape with the launches of the 1024^2 lean + multigrid solve,
 at k=1 and at k=2, at the 512^2 classified mesh with the launches of the
 full + multigrid solve, at one family geometry's displaced 1024^2 mesh
 with the launches of the 1024^2 family, and at the lean path's shape with
-the launches of the 1024^2 Galerkin solves, at k=1 and at k=2), the last
-line {"ok": true, "device": {...}}.
+the launches of the 1024^2 Galerkin solves, at k=1 and at k=2, and at
+every cell of the classified 1024^2 mesh with the launches of phase 25's
+bench run), the last line {"ok": true, "device": {...}}.
 """
 
 import json
@@ -350,7 +366,7 @@ def ptxas_summary(log: str):
 
 def assembly_split(N: int, k: int, device: str = "cuda") -> None:
     """The assembly phase of the N^2 level split into its parts, called in
-    turn as cut/fictdom_structured.py:_assemble_level_cl runs them, with a
+    turn as cut/fictdom_structured.py:assemble_level_cl runs them, with a
     device synchronize after each (host clock)."""
     from proton_tpu_torch.config import synchronize
     from proton_tpu_torch.core.geometry import cell_geometry
@@ -364,8 +380,8 @@ def assembly_split(N: int, k: int, device: str = "cuda") -> None:
     device = torch.device(device)
     hdi, problem, eta = HHODegreeInfo(k + 1, k), fs.default_problem(), \
         fs.nitsche_eta(k)
-    mesh, _, _, cell_loc, batch, _ = fs._classify(N, problem, 4,
-                                                  device=device)
+    mesh, _, _, cell_loc, batch, _ = fs.classify_cells(N, problem, 4,
+                                                       device=device)
     synchronize(device)
     parts = {}
 
@@ -584,8 +600,8 @@ def path_inputs(n: int, device: str = "cuda"):
 
     mesh1 = unit_cell_mesh(1.0 / n, device=device)
     unit = fa.pack_inputs(mesh1, cell_geometry(mesh1))
-    mesh, _, _, _, _, dist_ids = fs._classify(n, fs.default_problem(), 4,
-                                              device=torch.device(device))
+    mesh, _, _, _, _, dist_ids = fs.classify_cells(
+        n, fs.default_problem(), 4, device=torch.device(device))
     geom = cell_geometry(mesh)
     sub, gsub = fs._gather_cells(
         mesh, geom, torch.as_tensor(dist_ids, device=mesh.points.device))
@@ -1540,8 +1556,8 @@ def family_phase(bw: float, flop_peak: float, N: int = 1024,
                  N_app: int = 256, device: str = "cuda"):
     """Phase 21: K1 against its plain version on the displaced N^2 mesh of
     one family geometry; the N^2 k=1 two-circle family at the app's tol
-    1e-6 with K1's launches; the app at its documented widths with 16 of
-    its 64 geometries (-N 256 -k 1 -B 16); the ellipse and flower
+    1e-6 with K1's launches; the app at its documented widths with 8 of
+    its 64 geometries (-N 256 -k 1 -B 8); the ellipse and flower
     families at 256^2 B=2;
     and two geometries at 256^2, tol 1e-10, each equal to the structured
     solve of the same circle (H1 rtol 1e-8). The structured solve is
@@ -1567,7 +1583,7 @@ def family_phase(bw: float, flop_peak: float, N: int = 1024,
 
     _, launches = family_solve(N, FAMILY_RADII, FAMILY_CENTERS, 1e-6,
                                device)
-    family_app(["-N", str(N_app), "-k", "1", "-B", "16"], device)
+    family_app(["-N", str(N_app), "-k", "1", "-B", "8"], device)
     for shape in ("ellipse", "flower"):
         family_app(["-N", str(N_app), "-k", "1", "-B", "2", "--shape",
                     shape], device)
@@ -1748,10 +1764,11 @@ def galerkin_phase(red, displaced_cells):
     2, H1 rtol 1e-6 at k=1, 1e-4 at k=2); k=2 at 256^2, 512^2 and 1024^2
     with mg_galerkin=True, each held against the rediscretized solve of
     the same N, k and tol in ``red`` (phases 7 and 9;
-    against_rediscretized), with K1's launches and cell counts;
-    mg_gamma=2 at 256^2 k=2 (at 512^2 it takes 957 iterations at 178 ms,
-    170 s, more than the budget leaves: tools/galerkin_history.py
-    --gamma 2 measures it); torch.profiler over 20 Galerkin-MG
+    against_rediscretized), with K1's launches and cell counts
+    (mg_gamma=2 runs in the 32^2 gate only: at 256^2 and 512^2 k=2 it
+    takes 307 and 957 iterations at 145-180 ms, 45 and 170 s, more than
+    the budget leaves; tools/galerkin_history.py --gamma 2 measures it);
+    torch.profiler over 20 Galerkin-MG
     iterations at 1024^2 k=2 on a hierarchy built anew from the
     profiled levels; the 1024^2 k=1 solve capped at GALERKIN_K1_CAP
     iterations (it stalls), its residual below GALERKIN_K1_REL, with K1's
@@ -1774,13 +1791,6 @@ def galerkin_phase(red, displaced_cells):
               f"{n}^2 k=2: the Galerkin solve launched K1 at {cells}")
         against_rediscretized(n, 2, r, red[(n, 2)])
         del r
-    r = solve(256, 2, 1e-11, fitted="lean", precond="mg", mg_galerkin=True,
-              mg_gamma=2)
-    line("galerkin_gamma2", N=256, k=2, iterations=r.iterations,
-         ms_per_iteration=1e3 * r.timings["cg_s"] / r.iterations,
-         iterations_rediscretized=red[(256, 2)].iterations)
-    against_rediscretized(256, 2, r, red[(256, 2)])
-    del r
     torch.cuda.empty_cache()
 
     r, launches_k2, cells = galerkin_solve("galerkin_solve_1024_k2", 1024, 2)
@@ -1932,6 +1942,85 @@ def parallel_phase(N: int = 512, k: int = 1, tol: float = 1e-12,
         torch.cuda.empty_cache()
 
 
+def bench_phase(ref, displaced_cells, N: int = 1024, N_cli: int = 128,
+                device: str = "cuda"):
+    """Phase 25 [bench]: proton_tpu_torch.bench.run_bench(N, 1) in this
+    process at PROTON_BENCH_TOL=1e-11 (the other knobs at their
+    defaults), with K1's launches and their cell counts set to 0 just
+    before and read just after (the unit-cell cache emptied first, so the
+    lean launches are the bench's own whatever ran before): two launches
+    on all N^2 cells and the lean path's (check_lean_launches). Held to
+    ``ref``, phase 7's lean + MG solve of the same system at the same tol:
+    CG exit 0, iterations within 2, H1 within rtol 1e-6. Then the stock
+    form of `python -m proton_tpu_torch.bench` at PROTON_BENCH_N=N_cli as
+    a subprocess: exit 0, two JSON lines, the last with the k=2 fields
+    under "k2". Every JSON line is printed on a [bench] line. Returns K1's
+    launches in the run_bench call."""
+    import os
+
+    from proton_tpu_torch import bench
+    from proton_tpu_torch.cut import fictdom_structured as fs
+    from proton_tpu_torch.methods import fused_assembly as fa
+
+    knobs = [k for k in os.environ if k.startswith("PROTON_BENCH_")]
+    check(not knobs, f"phase 25 runs the bench's defaults; {knobs} are set")
+    os.environ["PROTON_BENCH_TOL"] = "1e-11"
+    try:
+        fs._unit_cell_host.cache_clear()
+        fa.fused_local_operator.launches = 0
+        fa.fused_local_operator.launch_cells.clear()
+        result = bench.run_bench(N, 1, device)
+        launches = fa.fused_local_operator.launches
+        cells = list(fa.fused_local_operator.launch_cells)
+    finally:
+        del os.environ["PROTON_BENCH_TOL"]
+    print("[bench] " + json.dumps(result), flush=True)
+    line("bench_launches", kernel="fused_local_operator", launches=launches,
+         launch_cells=",".join(map(str, cells)))
+    if torch.device(device).type == "cuda":
+        check(cells.count(N * N) == 2,
+              f"the bench launched K1 on all {N * N} cells "
+              f"{cells.count(N * N)} times, not 2")
+        check_lean_launches("the bench's lean system and levels",
+                            [c for c in cells if c != N * N],
+                            displaced_cells)
+    line("bench_vs_phase7", N=N, iterations=result["cg_iters"],
+         iterations_phase7=ref.iterations, h1=result["h1_error"],
+         h1_phase7=ref.h1_error)
+    check(result["cg_exit"] == 0, f"bench {N}^2: CG exit {result['cg_exit']}")
+    check(abs(result["cg_iters"] - ref.iterations) <= 2,
+          f"bench {N}^2: {result['cg_iters']} iterations, phase 7 "
+          f"{ref.iterations}")
+    check(math.isclose(result["h1_error"], ref.h1_error, rel_tol=1e-6),
+          f"bench {N}^2: H1 {result['h1_error']}, phase 7 {ref.h1_error}")
+    del result
+    torch.cuda.empty_cache()
+
+    env = dict(os.environ, PROTON_BENCH_N=str(N_cli))
+    t0 = time.perf_counter()
+    cmd = [sys.executable, "-m", "proton_tpu_torch.bench"]
+    if device != "cuda":
+        cmd += ["--device", device]
+    out = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+                         env=env, capture_output=True, text=True,
+                         timeout=600)
+    rows = [ln for ln in out.stdout.splitlines() if ln.startswith("{")]
+    for row in rows:
+        print("[bench] " + row, flush=True)
+    line("bench_cli", N=N_cli, exit=out.returncode, lines=len(rows),
+         seconds=time.perf_counter() - t0)
+    check(out.returncode == 0 and len(rows) == 2,
+          f"the bench CLI at {N_cli}^2 exited {out.returncode} with "
+          f"{len(rows)} lines: {out.stderr[-2000:]}")
+    first, last = (json.loads(r) for r in rows)
+    k2 = last.pop("k2", {})
+    check(first["k"] == 1 and last == first and k2.get("k") == 2 and
+          k2.get("cg_exit") == 0 and
+          set(bench._K2_FIELDS) <= set(k2),
+          f"the bench CLI at {N_cli}^2: k2 {k2}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2067,8 +2156,10 @@ def main() -> int:
           "1024^2: H1 of lean + mg differs from lean + block-Jacobi")
     check(local_diff < 2e-8, f"1024^2: local dofs differ by {local_diff} "
           "from lean + block-Jacobi")
-    # phase 23 holds the Galerkin solves against these rediscretized ones
+    # phase 23 holds the Galerkin solves against these rediscretized ones,
+    # phase 25 the bench's solve against this one
     red = {(1024, 1): mg1024}
+    ref_bench = mg1024._replace(local=None)
     del r1024, mg1024, bj1024
     torch.cuda.empty_cache()
 
@@ -2199,6 +2290,10 @@ def main() -> int:
     parallel_phase()
     phase_done("24 parallel")
 
+    # 25. the bench entry point
+    launches_bench = bench_phase(ref_bench, displaced_cells)
+    phase_done("25 bench")
+
     line("total", seconds=round(time.perf_counter() - t_start, 3))
     print(smi, flush=True)
     record = dict(route="cuda", source="proton_tpu_torch/csrc/fused_assembly.cu",
@@ -2221,7 +2316,9 @@ def main() -> int:
              **record, **shape_rows[("displaced", 1024, 1)]),
         dict(name="fused_local_operator_k2_galerkin",
              launches=launches_gal_k2, **record,
-             **shape_rows[("displaced", 1024, 2)])]}), flush=True)
+             **shape_rows[("displaced", 1024, 2)]),
+        dict(name="fused_local_operator_bench", launches=launches_bench,
+             **record, **shape_rows[("full", 1024, 1)])]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}), flush=True)
     return 0

@@ -125,11 +125,11 @@ def classify_level(N: int, problem: FictdomProblem, int_refsteps: int, *,
     return mesh, cutdata, cut_ids
 
 
-def _classify(N: int, problem: FictdomProblem, int_refsteps: int, *, device,
-              dtype=DEFAULT_DTYPE):
+def classify_cells(N: int, problem: FictdomProblem, int_refsteps: int, *,
+                   device, dtype=DEFAULT_DTYPE):
     """Classification phase (JAX _classify_host without the disk caches
     or the host/device split): (mesh, cutdata, cut_ids, cell_loc, batch,
-    distorted ids)."""
+    distorted ids), the ``classified`` tuple of lean_level."""
     mesh, cutdata, cut_ids = classify_level(N, problem, int_refsteps,
                                             device=device, dtype=dtype)
     batch = cut_methods.make_cut_batch(mesh, cell_geometry(mesh), cutdata,
@@ -172,13 +172,14 @@ def _cut_loads_cl(batch, hdi: HHODegreeInfo, problem: FictdomProblem,
                                problem.ls, problem.sol_fun, side, eta=eta).T
 
 
-def _assemble_level_cl(mesh, geom, cell_loc, batch, hdi: HHODegreeInfo,
-                       problem: FictdomProblem, eta: float,
-                       side: int = LOC_NEG, with_rhs: bool = True):
+def assemble_level_cl(mesh, geom, cell_loc, batch, hdi: HHODegreeInfo,
+                      problem: FictdomProblem, eta: float,
+                      side: int = LOC_NEG, with_rhs: bool = True):
     """(lc_cl [d*d, C], f_cl [cbs, C]): fitted operators of every cell
     from K1 (the uncut fallback, cuthho_square.cpp:316-317), the Nitsche
-    cut operators overwriting the cut class. The JAX function condenses
-    before returning; here build_level condenses, to time it apart."""
+    cut operators overwriting the cut class. The JAX function
+    (_assemble_level_cl) condenses before returning; here the caller
+    condenses, to time it apart."""
     lc_cl = fused_assembly.fitted_local_operator(mesh, geom, hdi,
                                                  cells_last=True)
     cells_last.set_columns(lc_cl, batch.ids,
@@ -286,6 +287,22 @@ def _check_precond(precond: str) -> None:
                          "'block_jacobi' or 'jacobi'")
 
 
+def lean_level(classified, geom, N: int, hdi: HHODegreeInfo,
+               problem: FictdomProblem, eta: float, *,
+               with_rhs: bool = True) -> LevelData:
+    """The lean system of one level from its classification (the tuple of
+    classify_cells) and cell geometry: the unit-cell operator for every
+    regular cell, exact assembly on the O(N) displaced and cut cells."""
+    mesh, cutdata, cut_ids, cell_loc, batch, dist_ids = classified
+    unit = _unit_cell_host(hdi, 1.0 / N, mesh.points.device)
+    irr_ids = np.union1d(dist_ids, cut_ids)
+    cond = _assemble_level_uniform_lean(
+        mesh, geom, cell_loc, batch, dist_ids, irr_ids, cut_ids, unit, hdi,
+        problem, eta, with_rhs)
+    return LevelData(mesh, cutdata, cut_ids, cond, batch, cell_loc,
+                     unit[0].to(mesh.points.dtype), irr_ids)
+
+
 def build_level(N: int, hdi: HHODegreeInfo, problem: FictdomProblem,
                 eta: float, int_refsteps: int, *, device,
                 dtype=DEFAULT_DTYPE, fitted: str = "full",
@@ -303,25 +320,22 @@ def build_level(N: int, hdi: HHODegreeInfo, problem: FictdomProblem,
     device = resolve_device(device)
     timings = {} if timings is None else timings
     t0 = time.perf_counter()
-    mesh, cutdata, cut_ids, cell_loc, batch, dist_ids = _classify(
-        N, problem, int_refsteps, device=device, dtype=dtype)
+    classified = classify_cells(N, problem, int_refsteps, device=device,
+                                dtype=dtype)
+    mesh, cutdata, cut_ids, cell_loc, batch, _ = classified
     synchronize(device)
     timings["classify_s"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
     geom = cell_geometry(mesh)
     if fitted in ("lean", "uniform"):
-        unit = _unit_cell_host(hdi, 1.0 / N, mesh.points.device)
-        irr_ids = np.union1d(dist_ids, cut_ids)
-        cond = _assemble_level_uniform_lean(
-            mesh, geom, cell_loc, batch, dist_ids, irr_ids, cut_ids, unit,
-            hdi, problem, eta, with_rhs)
+        level = lean_level(classified, geom, N, hdi, problem, eta,
+                           with_rhs=with_rhs)
         synchronize(device)
         timings["assembly_s"] = time.perf_counter() - t0
-        return LevelData(mesh, cutdata, cut_ids, cond, batch, cell_loc,
-                         unit[0].to(dtype), irr_ids)
-    lc_cl, f_cl = _assemble_level_cl(mesh, geom, cell_loc, batch, hdi,
-                                     problem, eta, with_rhs=with_rhs)
+        return level
+    lc_cl, f_cl = assemble_level_cl(mesh, geom, cell_loc, batch, hdi,
+                                    problem, eta, with_rhs=with_rhs)
     del geom
     synchronize(device)
     timings["assembly_s"] = time.perf_counter() - t0
@@ -512,6 +526,68 @@ def recover_local(fsys: FaceSystem, level: LevelData, hdi: HHODegreeInfo,
     return cells_last.solve_recover_cl(fsys.sys, level.cond, x, fsys.gF_cl)
 
 
+def mg_preconditioner(fine: LevelData, N: int, hdi: HHODegreeInfo,
+                      problem: FictdomProblem, eta: float, int_refsteps: int,
+                      *, device, dtype=DEFAULT_DTYPE, fitted: str = "lean",
+                      mg_coarsest: int = 8, mg_galerkin: bool = False,
+                      mg_gamma: int = 1, timings: Optional[dict] = None,
+                      **vcycle) -> Callable:
+    """The V-cycle of solve_fictdom_structured over ``fine`` and its
+    rediscretized coarse levels N/2, ..., ``mg_coarsest`` (with
+    ``mg_galerkin`` the exact Galerkin coarse operators instead), as the
+    preconditioner callable of CG. ``vcycle``: level_multigrid's
+    smoother keywords. Phase times go into ``timings``:
+    assemble_coarse_s, galerkin_setup_s, mg_setup_s."""
+    timings = {} if timings is None else timings
+    t0 = time.perf_counter()
+    levels = {N: fine}
+    levels.update(build_coarse_levels(
+        N, hdi, problem, eta, int_refsteps, device=device, dtype=dtype,
+        fitted=fitted, mg_coarsest=mg_coarsest))
+    synchronize(device)
+    timings["assemble_coarse_s"] = time.perf_counter() - t0
+    galerkin = None
+    if mg_galerkin and len(levels) > 1:
+        t0 = time.perf_counter()
+        galerkin = band_galerkin_levels(levels, hdi, dtype=dtype)
+        synchronize(device)
+        timings["galerkin_setup_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mg = level_multigrid(levels, hdi, mg_coarsest=mg_coarsest,
+                         galerkin=galerkin, gamma=mg_gamma, **vcycle)
+    synchronize(device)
+    timings["mg_setup_s"] = time.perf_counter() - t0
+    return mg.precondition
+
+
+def solve_level(level: LevelData, N: int, hdi: HHODegreeInfo,
+                problem: FictdomProblem, precond: str,
+                cg_params: cg.CGParams, *, apply_mg: Optional[Callable] = None,
+                device, timings: Optional[dict] = None):
+    """(local [C, d], CGResult): face_system, PCG preconditioned by
+    ``apply_mg`` (mg_preconditioner's, with precond='mg') or by the face
+    system's block-Jacobi or Jacobi, and recover_local. Phase times go
+    into ``timings``: setup_s, cg_s, recover_s."""
+    timings = {} if timings is None else timings
+    t0 = time.perf_counter()
+    fsys = face_system(level, N, hdi, problem, precond, device=device)
+    synchronize(device)
+    timings["setup_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    res = cg.conjugated_gradient(
+        fsys.apply_S, fsys.rhs, fsys.diag, cg_params,
+        precond=apply_mg if precond == "mg" else fsys.precond)
+    synchronize(device)
+    timings["cg_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    local = recover_local(fsys, level, hdi, res.x)
+    synchronize(device)
+    timings["recover_s"] = time.perf_counter() - t0
+    return local, res
+
+
 # Options of the JAX solve that the port leaves out: name -> (the value
 # that is accepted, what the option is). The first four are TPU precision
 # workarounds and the last three are experiments the JAX package measured
@@ -626,50 +702,18 @@ def solve_fictdom_structured(
 
     fine = build_level(N, hdi, problem, eta, int_refsteps, device=device,
                        dtype=dtype, fitted=fitted, timings=timings)
-
-    levels = {N: fine}
+    apply_mg = None
     if precond == "mg":
-        t0 = time.perf_counter()
-        levels.update(build_coarse_levels(
-            N, hdi, problem, eta, int_refsteps, device=device, dtype=dtype,
-            fitted=fitted, mg_coarsest=mg_coarsest))
-        synchronize(device)
-        timings["assemble_coarse_s"] = time.perf_counter() - t0
-
-    t0 = time.perf_counter()
-    fsys = face_system(fine, N, hdi, problem, precond, device=device)
-    synchronize(device)
-    timings["setup_s"] = time.perf_counter() - t0
-
-    apply_precond = fsys.precond
-    if precond == "mg":
-        galerkin = None
-        if mg_galerkin and len(levels) > 1:
-            t0 = time.perf_counter()
-            galerkin = band_galerkin_levels(levels, hdi, dtype=dtype)
-            synchronize(device)
-            timings["galerkin_setup_s"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        apply_precond = level_multigrid(
-            levels, hdi, mg_coarsest=mg_coarsest, n_smooth=n_smooth,
-            patch_ring=patch_ring, patch_colors=patch_colors,
-            cheb_degree=cheb_degree, patch_sweeps=patch_sweeps,
-            smoother=mg_smoother, galerkin=galerkin,
-            gamma=mg_gamma).precondition
-        synchronize(device)
-        timings["mg_setup_s"] = time.perf_counter() - t0
-    del levels
-
-    t0 = time.perf_counter()
-    res = cg.conjugated_gradient(fsys.apply_S, fsys.rhs, fsys.diag,
-                                 cg_params, precond=apply_precond)
-    synchronize(device)
-    timings["cg_s"] = time.perf_counter() - t0
-
-    t0 = time.perf_counter()
-    local = recover_local(fsys, fine, hdi, res.x)
-    synchronize(device)
-    timings["recover_s"] = time.perf_counter() - t0
+        apply_mg = mg_preconditioner(
+            fine, N, hdi, problem, eta, int_refsteps, device=device,
+            dtype=dtype, fitted=fitted, mg_coarsest=mg_coarsest,
+            mg_galerkin=mg_galerkin, mg_gamma=mg_gamma, timings=timings,
+            n_smooth=n_smooth, patch_ring=patch_ring,
+            patch_colors=patch_colors, cheb_degree=cheb_degree,
+            patch_sweeps=patch_sweeps, smoother=mg_smoother)
+    local, res = solve_level(fine, N, hdi, problem, precond, cg_params,
+                             apply_mg=apply_mg, device=device,
+                             timings=timings)
 
     h1 = None
     if compute_h1:

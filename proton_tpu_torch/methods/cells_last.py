@@ -82,6 +82,19 @@ class GridVecCL(NamedTuple):
     V: torch.Tensor   # [fbs, Ny, Nx+1]
 
 
+def to_cells_last(x) -> GridVecCL:
+    """structured.GridVec ([Ny+1, Nx, fbs]) -> GridVecCL."""
+    return GridVecCL(x.H.permute(2, 0, 1).contiguous(),
+                     x.V.permute(2, 0, 1).contiguous())
+
+
+def from_cells_last(x: GridVecCL):
+    """GridVecCL -> structured.GridVec (a view)."""
+    from .structured import GridVec
+
+    return GridVec(x.H.permute(1, 2, 0), x.V.permute(1, 2, 0))
+
+
 def grid_gather_cl(sys: StructuredFaceSystem, x: GridVecCL):
     """Local face vectors [4*fbs, C] by slicing (slot order bottom,
     right, top, left)."""

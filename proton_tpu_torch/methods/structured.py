@@ -63,15 +63,6 @@ class GridVec(NamedTuple):
     V: torch.Tensor   # [Ny, Nx+1, fbs]
 
 
-def _to_cl(x: GridVec) -> cl.GridVecCL:
-    return cl.GridVecCL(x.H.permute(2, 0, 1).contiguous(),
-                        x.V.permute(2, 0, 1).contiguous())
-
-
-def _to_rm(x: cl.GridVecCL) -> GridVec:
-    return GridVec(x.H.permute(1, 2, 0), x.V.permute(1, 2, 0))
-
-
 def _S_cl(S):
     """[C, n, n] -> cells-last [n*n, C]."""
     C, n = S.shape[0], S.shape[1]
@@ -80,14 +71,14 @@ def _S_cl(S):
 
 def grid_gather(sys: StructuredFaceSystem, x: GridVec):
     """Local face vectors [C, 4*fbs] from the grids, by slicing."""
-    return cl.grid_gather_cl(sys, _to_cl(x)).T
+    return cl.grid_gather_cl(sys, cl.to_cells_last(x)).T
 
 
 def grid_scatter(sys: StructuredFaceSystem, contrib) -> GridVec:
     """Adjoint of grid_gather: accumulate [C, 4*B] cell contributions
     into the face grids (B = fbs for values, fbs*fbs for the
     block-Jacobi blocks)."""
-    return _to_rm(cl.grid_scatter_cl(sys, contrib.T))
+    return cl.from_cells_last(cl.grid_scatter_cl(sys, contrib.T))
 
 
 def _mask(sys: StructuredFaceSystem, x: GridVec) -> GridVec:
@@ -100,13 +91,13 @@ def make_structured_operator(sys: StructuredFaceSystem, S):
     apply_cl = cl.make_structured_operator_cl(sys, _S_cl(S))
 
     def apply_S(x: GridVec) -> GridVec:
-        return _to_rm(apply_cl(_to_cl(x)))
+        return cl.from_cells_last(apply_cl(cl.to_cells_last(x)))
 
     return apply_S
 
 
 def structured_diagonal(sys: StructuredFaceSystem, S) -> GridVec:
-    return _to_rm(cl.structured_diagonal_cl(sys, _S_cl(S)))
+    return cl.from_cells_last(cl.structured_diagonal_cl(sys, _S_cl(S)))
 
 
 def assembled_face_blocks(sys: StructuredFaceSystem, S):
@@ -123,7 +114,7 @@ def block_jacobi_preconditioner(sys: StructuredFaceSystem, S):
     precond_cl = cl.block_jacobi_preconditioner_cl(sys, _S_cl(S))
 
     def precond(r: GridVec) -> GridVec:
-        return _to_rm(precond_cl(_to_cl(r)))
+        return cl.from_cells_last(precond_cl(cl.to_cells_last(r)))
 
     return precond
 
@@ -134,7 +125,7 @@ def make_cut_patch_smoother(sys: StructuredFaceSystem, S, cut_ids):
     patch_cl = cl.make_cut_patch_smoother_cl(sys, _S_cl(S), cut_ids)
 
     def apply_patch(r: GridVec) -> GridVec:
-        return _to_rm(patch_cl(_to_cl(r)))
+        return cl.from_cells_last(patch_cl(cl.to_cells_last(r)))
 
     return apply_patch
 
@@ -145,7 +136,7 @@ def structured_rhs(sys: StructuredFaceSystem, cond, g_loc=None,
     the Dirichlet data of g_loc [C, d] folded in, on the grids."""
     gF_cl = None if g_loc is None else g_loc[:, cbs:].T
     cond_cl = cl.CondensedCL(_S_cl(cond.S), cond.bF.T, None, None)
-    return _to_rm(cl.structured_rhs_cl(sys, cond_cl, gF_cl))
+    return cl.from_cells_last(cl.structured_rhs_cl(sys, cond_cl, gF_cl))
 
 
 def solve_condensed_structured_cl(sys: StructuredFaceSystem, lc_cl, f_cl,
@@ -180,4 +171,4 @@ def solve_condensed_structured(sys: StructuredFaceSystem, lc, f_cells,
     gF_cl = None if g_loc is None else g_loc[:, cbs:].T
     local, res = solve_condensed_structured_cl(
         sys, _S_cl(lc), f_cells.T, cbs, gF_cl, cg_params)
-    return local, res._replace(x=_to_rm(res.x))
+    return local, res._replace(x=cl.from_cells_last(res.x))

@@ -92,7 +92,7 @@ def test_port_batch_matches_jax_batch(batches16):
     """The port's own classification gives the same cut batch."""
     jbatch, _ = batches16
     problem = fs.default_problem()
-    *_, batch, _ = fs._classify(16, problem, 4, device=CPU)
+    *_, batch, _ = fs.classify_cells(16, problem, 4, device=CPU)
     np.testing.assert_array_equal(batch.ids.numpy(), np.asarray(jbatch.ids))
     np.testing.assert_array_equal(batch.node_loc.numpy(),
                                   np.asarray(jbatch.node_loc))

@@ -34,7 +34,7 @@ def test_every_module_imports_without_jax():
                  "io.debug_plots", "utils.debug", "apps.cuthho_square",
                  "methods.structured", "cut.batched",
                  "apps.fictdom_family", "parallel.sharding",
-                 "parallel.halo"):
+                 "parallel.halo", "bench"):
         assert "proton_tpu_torch." + name in mods
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"

@@ -131,7 +131,7 @@ def _fictdom_operators(N: int, k: int):
     geom = cell_geometry(mesh)
     batch = cut_methods.make_cut_batch(mesh, geom, cutdata, cut_ids)
     eta = fs.nitsche_eta(k)
-    lc, f = fs._assemble_level_cl(mesh, geom, cutdata.cell_loc, batch, hdi,
+    lc, f = fs.assemble_level_cl(mesh, geom, cutdata.cell_loc, batch, hdi,
                                   p, eta)
     d = int(round(lc.shape[0] ** 0.5))
     dofmap = assembly.build_dofmap(mesh, hdi)
