@@ -6,8 +6,12 @@ port works in ``torch.float64`` throughout. Torch's default dtype is
 float32: every entry point takes an explicit ``dtype`` that defaults to
 :data:`DEFAULT_DTYPE`.
 
-TF32 is switched off for both cuBLAS matmuls and cuDNN convolutions, the
-counterpart of the JAX package pinning ``Precision.HIGHEST``.
+TF32 is switched off for both cuBLAS matmuls and cuDNN convolutions, and
+float32 matmuls run at the "highest" precision: the counterpart of the
+JAX package pinning ``Precision.HIGHEST`` for its float32 contractions.
+The precision modes (cut/fictdom_structured.py: ``mixed``, ``mg_f32``)
+run the system or the V-cycle in float32, and a reduced-precision
+product there floors the outer CG, as the TPU's default precision did.
 
 Entry points run on CUDA unless the caller asks for ``device="cpu"``.
 Without a device and without CUDA they raise: they never carry on on the
@@ -22,6 +26,7 @@ DEFAULT_DTYPE = torch.float64
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+torch.set_float32_matmul_precision("highest")
 
 
 def resolve_device(device=None) -> torch.device:

@@ -24,10 +24,26 @@ The pipeline:
 
 ``mg_galerkin=True`` replaces the rediscretized coarse operators by the
 exact Galerkin ones (band_galerkin_levels), and ``mg_gamma`` > 1 then
-re-visits the coarse problems W-style. Not ported: the precision
-workarounds (mixed, mg_f32, cg_f64, cg_segment), the refuted multigrid
-experiments (W-cycles on the rediscretized hierarchy among them) and
-every disk cache (ROADMAP.md, "Not ported").
+re-visits the coarse problems W-style.
+
+The JAX package's precision modes:
+
+- ``mixed=True``: a float32 system (the classified mesh rounded to
+  float32, K1 in float32 on the displaced cells, or on every cell with
+  fitted="full") with the O(N) cut class assembled and condensed in
+  float64 from the upcast float32 batch and rounded to float32 columns
+  (cut64_condensed). Sliver-cut Nitsche blocks have a local condition
+  number near 1/eps_f32 and round indefinite in float32 at k >= 2;
+- ``mg_f32=True``: the V-cycle built and applied in float32 around a
+  float64 (or float32) system;
+- ``cg_f64``: CG's recurrences in float64 around a float32 operator and
+  preconditioner;
+- ``cg_segment=m``: CG as warm-started segments of m iterations, each
+  restarting from the true residual.
+
+Not ported: the refuted multigrid experiments (W-cycles on the
+rediscretized hierarchy among them) and every disk cache (ROADMAP.md,
+"Not ported").
 """
 
 from __future__ import annotations
@@ -45,7 +61,8 @@ from ..core import bases, quadrature
 from ..core.geometry import cell_geometry, cell_points
 from ..core.mesh import make_poly_mesh, unit_cell_mesh
 from ..core.ops import HHODegreeInfo, cell_rhs
-from ..methods import assembly, cells_last, fused_assembly, structured
+from ..methods import (assembly, cells_last, condensation, fused_assembly,
+                       structured)
 from ..solvers import cg, multigrid
 from . import methods as cut_methods
 from .classify import (LOC_CUT, LOC_NEG, CutData, cut_preprocess,
@@ -110,41 +127,85 @@ class StructuredFictdomResult(NamedTuple):
     history: Optional[torch.Tensor] = None  # CG's, with record_history
 
 
+def _cast(tree, dtype):
+    """``tree`` (a tensor, or a NamedTuple or dataclass of them, nested)
+    with every floating tensor cast to ``dtype``."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(dtype) if tree.is_floating_point() else tree
+    if dataclasses.is_dataclass(tree):
+        return dataclasses.replace(tree, **{
+            f.name: _cast(getattr(tree, f.name), dtype)
+            for f in dataclasses.fields(tree)})
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_cast(a, dtype) for a in tree))
+    return tree
+
+
+def _check_mixed(mixed: bool, dtype) -> None:
+    if mixed and dtype != torch.float64:
+        raise ValueError("mixed precision splices a float64 cut class "
+                         "into a float32 system: it needs "
+                         f"dtype=torch.float64, not {dtype}")
+
+
 def classify_level(N: int, problem: FictdomProblem, int_refsteps: int, *,
-                   device, dtype=DEFAULT_DTYPE, method: str = "band"):
+                   device, dtype=DEFAULT_DTYPE, method: str = "band",
+                   mixed: bool = False, classify_f32: bool = False):
     """Mesh + classification of one level; returns (mesh', CutData, host
     cut-cell ids). ``method``: 'band' (cut_preprocess_band, the O(band)
     pipeline) or 'full' (cut_preprocess on every cell); the two give the
-    same result."""
+    same result.
+
+    ``classify_f32``: classify as ``dtype=torch.float32`` does, whatever
+    ``dtype``. The JAX package does so by default on the TPU, where
+    float64 is emulated; here the default is False. ``mixed``: return the
+    float32 copy of the mesh and the classification, the float32
+    system's pipeline (needs dtype=torch.float64, as JAX's needs x64).
+    Either flag returns float32 arrays."""
     if method not in ("band", "full"):
         raise ValueError(f"method={method!r}: expected 'band' or 'full'")
-    mesh = make_poly_mesh(Nx=N, Ny=N, device=device, dtype=dtype)
+    _check_mixed(mixed, dtype)
+    mesh = make_poly_mesh(Nx=N, Ny=N, device=device,
+                          dtype=torch.float32 if classify_f32 else dtype)
     pre = cut_preprocess_band if method == "band" else cut_preprocess
     mesh, cutdata = pre(mesh, problem.ls, levels=int_refsteps)
+    if mixed:
+        mesh, cutdata = _cast(mesh, torch.float32), \
+            _cast(cutdata, torch.float32)
     cut_ids = np.nonzero(cutdata.cell_loc.cpu().numpy() == LOC_CUT)[0]
     return mesh, cutdata, cut_ids
 
 
 def classify_cells(N: int, problem: FictdomProblem, int_refsteps: int, *,
-                   device, dtype=DEFAULT_DTYPE):
+                   device, dtype=DEFAULT_DTYPE, mixed: bool = False,
+                   classify_f32: bool = False):
     """Classification phase (JAX _classify_host without the disk caches
     or the host/device split): (mesh, cutdata, cut_ids, cell_loc, batch,
-    distorted ids), the ``classified`` tuple of lean_level."""
-    mesh, cutdata, cut_ids = classify_level(N, problem, int_refsteps,
-                                            device=device, dtype=dtype)
+    distorted ids), the ``classified`` tuple of lean_level. ``mixed``,
+    ``classify_f32``: classify_level's; the cut batch is gathered from
+    the float32 arrays then."""
+    mesh, cutdata, cut_ids = classify_level(
+        N, problem, int_refsteps, device=device, dtype=dtype, mixed=mixed,
+        classify_f32=classify_f32)
     batch = cut_methods.make_cut_batch(mesh, cell_geometry(mesh), cutdata,
                                        cut_ids)
     dist_ids = np.nonzero(cutdata.distorted.cpu().numpy())[0]
     return mesh, cutdata, cut_ids, cutdata.cell_loc, batch, dist_ids
 
 
-def _cut_operators_cl(batch, hdi: HHODegreeInfo, problem: FictdomProblem,
-                      eta: float, side: int):
-    """lc [d*d, Cc] of the cut class: the Nitsche cut operators plus the
+def _cut_operators(batch, hdi: HHODegreeInfo, problem: FictdomProblem,
+                   eta: float, side: int):
+    """lc [Cc, d, d] of the cut class: the Nitsche cut operators plus the
     cut stabilization."""
     _, data_cut = cut_methods.cut_hho_laplacian(batch, problem.ls, hdi, side,
                                                 eta=eta)
-    lc_cut = data_cut + cut_methods.cut_stabilization(batch, hdi, side)
+    return data_cut + cut_methods.cut_stabilization(batch, hdi, side)
+
+
+def _cut_operators_cl(batch, hdi: HHODegreeInfo, problem: FictdomProblem,
+                      eta: float, side: int):
+    """lc [d*d, Cc] of the cut class (_cut_operators, cells-last)."""
+    lc_cut = _cut_operators(batch, hdi, problem, eta, side)
     d = lc_cut.shape[1]
     return lc_cut.permute(1, 2, 0).reshape(d * d, -1)
 
@@ -174,20 +235,45 @@ def _cut_loads_cl(batch, hdi: HHODegreeInfo, problem: FictdomProblem,
 
 def assemble_level_cl(mesh, geom, cell_loc, batch, hdi: HHODegreeInfo,
                       problem: FictdomProblem, eta: float,
-                      side: int = LOC_NEG, with_rhs: bool = True):
+                      side: int = LOC_NEG, with_rhs: bool = True,
+                      cut_class: bool = True):
     """(lc_cl [d*d, C], f_cl [cbs, C]): fitted operators of every cell
     from K1 (the uncut fallback, cuthho_square.cpp:316-317), the Nitsche
     cut operators overwriting the cut class. The JAX function
     (_assemble_level_cl) condenses before returning; here the caller
-    condenses, to time it apart."""
+    condenses, to time it apart. ``cut_class=False`` leaves the cut
+    columns fitted: the mixed-precision system overwrites them after the
+    condensation with the float64 cut class (cut64_condensed), where the
+    JAX package first assembles them in float32, whose Cholesky can fail
+    on a sliver block at k >= 2."""
     lc_cl = fused_assembly.fitted_local_operator(mesh, geom, hdi,
                                                  cells_last=True)
-    cells_last.set_columns(lc_cl, batch.ids,
-                           _cut_operators_cl(batch, hdi, problem, eta, side))
     f_cl = _loads_cl(mesh, geom, cell_loc, hdi, problem, with_rhs, side)
-    f_cl[:, batch.ids] = _cut_loads_cl(batch, hdi, problem, eta, with_rhs,
-                                       side)
+    if cut_class:
+        cells_last.set_columns(lc_cl, batch.ids, _cut_operators_cl(
+            batch, hdi, problem, eta, side))
+        f_cl[:, batch.ids] = _cut_loads_cl(batch, hdi, problem, eta,
+                                           with_rhs, side)
     return lc_cl, f_cl
+
+
+def cut64_condensed(batch, hdi: HHODegreeInfo, problem: FictdomProblem,
+                    eta: float, with_rhs: bool, side: int = LOC_NEG,
+                    keep_f64: bool = False) -> cells_last.CondensedCL:
+    """The cut class of the mixed-precision system (JAX _cut64_impl and
+    cut64_condensed_cached, without its disk cache): the gathered float32
+    cut batch upcast to float64, the Nitsche operators and loads
+    assembled and condensed there (robust_spd_solve), the
+    back-substitution operators X, y taken in float64 (from_row_major),
+    and every column rounded to float32 unless ``keep_f64``. The float32
+    geometry moves the domain by O(eps_f32 h); what needs float64 is the
+    arithmetic on the sliver blocks."""
+    batch64 = _cast(batch, torch.float64)
+    lc_cut = _cut_operators(batch64, hdi, problem, eta, side)
+    f_cut = _cut_loads_cl(batch64, hdi, problem, eta, with_rhs, side).T
+    ccl = cells_last.from_row_major(condensation.condense(
+        lc_cut, f_cut, bases.cell_basis_size(hdi.cell_degree), robust=True))
+    return ccl if keep_f64 else _cast(ccl, torch.float32)
 
 
 def _gather_cells(mesh, geom, ids):
@@ -241,11 +327,12 @@ def _assemble_level_uniform_lean(mesh, geom, cell_loc, batch, dist_ids,
                                  irr_ids, cut_ids, unit,
                                  hdi: HHODegreeInfo, problem: FictdomProblem,
                                  eta: float, with_rhs: bool,
-                                 side: int = LOC_NEG):
+                                 side: int = LOC_NEG, cut_cond=None):
     """Lean-uniform fictdom assembly: the unit-cell operator stands for
     every regular cell, and exact per-cell assembly is spliced over (a)
     the ``dist_ids`` cells whose nodes the bad-cut displacement moved
-    (K1 on the gathered batch) and (b) the cut class (Nitsche kernels).
+    (K1 on the gathered batch) and (b) the cut class (Nitsche kernels,
+    or ``cut_cond``, its condensed columns made by the caller).
     ``irr_ids`` = union(dist_ids, cut_ids), sorted; all three are host
     arrays. No O(N^2) operator plane is formed."""
     dtype = mesh.points.dtype
@@ -269,10 +356,12 @@ def _assemble_level_uniform_lean(mesh, geom, cell_loc, batch, dist_ids,
         _set_cells_lean(ucond, S_u_cl, irr_ids, dist_ids,
                         cells_last.condense_cl(lc_d, fT[:, dist_d], cbs))
 
-    cut_cond = cells_last.condense_cl(
-        _cut_operators_cl(batch, hdi, problem, eta, side),
-        _cut_loads_cl(batch, hdi, problem, eta, with_rhs, side), cbs)
-    return _set_cells_lean(ucond, S_u_cl, irr_ids, cut_ids, cut_cond)
+    if cut_cond is None:
+        cut_cond = cells_last.condense_cl(
+            _cut_operators_cl(batch, hdi, problem, eta, side),
+            _cut_loads_cl(batch, hdi, problem, eta, with_rhs, side), cbs)
+    return _set_cells_lean(ucond, S_u_cl, irr_ids, cut_ids,
+                           _cast(cut_cond, dtype))
 
 
 def _check_fitted(fitted: str) -> None:
@@ -289,16 +378,22 @@ def _check_precond(precond: str) -> None:
 
 def lean_level(classified, geom, N: int, hdi: HHODegreeInfo,
                problem: FictdomProblem, eta: float, *,
-               with_rhs: bool = True) -> LevelData:
+               with_rhs: bool = True, mixed: bool = False,
+               cut_cond=None) -> LevelData:
     """The lean system of one level from its classification (the tuple of
     classify_cells) and cell geometry: the unit-cell operator for every
-    regular cell, exact assembly on the O(N) displaced and cut cells."""
+    regular cell, exact assembly on the O(N) displaced and cut cells, in
+    the mesh's dtype. ``mixed`` (a float32 classification): the cut
+    class comes from cut64_condensed, unless the caller passes its
+    columns as ``cut_cond``."""
     mesh, cutdata, cut_ids, cell_loc, batch, dist_ids = classified
     unit = _unit_cell_host(hdi, 1.0 / N, mesh.points.device)
     irr_ids = np.union1d(dist_ids, cut_ids)
+    if cut_cond is None and mixed:
+        cut_cond = cut64_condensed(batch, hdi, problem, eta, with_rhs)
     cond = _assemble_level_uniform_lean(
         mesh, geom, cell_loc, batch, dist_ids, irr_ids, cut_ids, unit, hdi,
-        problem, eta, with_rhs)
+        problem, eta, with_rhs, cut_cond=cut_cond)
     return LevelData(mesh, cutdata, cut_ids, cond, batch, cell_loc,
                      unit[0].to(mesh.points.dtype), irr_ids)
 
@@ -306,14 +401,17 @@ def lean_level(classified, geom, N: int, hdi: HHODegreeInfo,
 def build_level(N: int, hdi: HHODegreeInfo, problem: FictdomProblem,
                 eta: float, int_refsteps: int, *, device,
                 dtype=DEFAULT_DTYPE, fitted: str = "full",
-                with_rhs: bool = True,
-                timings: Optional[dict] = None) -> LevelData:
+                with_rhs: bool = True, timings: Optional[dict] = None,
+                mixed: bool = False,
+                classify_f32: bool = False) -> LevelData:
     """Classify + assemble + condense one level. ``fitted``: 'full'
     assembles every cell with K1; 'lean' (and 'uniform', the same system)
     assembles only the O(N) displaced and cut cells around the unit-cell
     operator (exact on the generated mesh up to basis
     translation-invariance). ``with_rhs=False``
-    (the multigrid coarse levels) skips the load vectors. Phase times go
+    (the multigrid coarse levels) skips the load vectors. ``mixed``: the
+    float32 system with the float64 cut class spliced in
+    (cut64_condensed); ``classify_f32``: classify_level's. Phase times go
     into ``timings``; the lean assembly condenses as it goes, so its time
     is all in ``assembly_s``."""
     _check_fitted(fitted)
@@ -321,7 +419,8 @@ def build_level(N: int, hdi: HHODegreeInfo, problem: FictdomProblem,
     timings = {} if timings is None else timings
     t0 = time.perf_counter()
     classified = classify_cells(N, problem, int_refsteps, device=device,
-                                dtype=dtype)
+                                dtype=dtype, mixed=mixed,
+                                classify_f32=classify_f32)
     mesh, cutdata, cut_ids, cell_loc, batch, _ = classified
     synchronize(device)
     timings["classify_s"] = time.perf_counter() - t0
@@ -330,12 +429,13 @@ def build_level(N: int, hdi: HHODegreeInfo, problem: FictdomProblem,
     geom = cell_geometry(mesh)
     if fitted in ("lean", "uniform"):
         level = lean_level(classified, geom, N, hdi, problem, eta,
-                           with_rhs=with_rhs)
+                           with_rhs=with_rhs, mixed=mixed)
         synchronize(device)
         timings["assembly_s"] = time.perf_counter() - t0
         return level
     lc_cl, f_cl = assemble_level_cl(mesh, geom, cell_loc, batch, hdi,
-                                    problem, eta, with_rhs=with_rhs)
+                                    problem, eta, with_rhs=with_rhs,
+                                    cut_class=not mixed)
     del geom
     synchronize(device)
     timings["assembly_s"] = time.perf_counter() - t0
@@ -344,6 +444,9 @@ def build_level(N: int, hdi: HHODegreeInfo, problem: FictdomProblem,
     cond = cells_last.condense_cl(lc_cl, f_cl,
                                   bases.cell_basis_size(hdi.cell_degree))
     del lc_cl
+    if mixed:
+        cells_last.set_cells(cond, batch.ids, cut64_condensed(
+            batch, hdi, problem, eta, with_rhs))
     synchronize(device)
     timings["condense_s"] = time.perf_counter() - t0
     return LevelData(mesh, cutdata, cut_ids, cond, batch, cell_loc)
@@ -369,14 +472,15 @@ def expand_ring(ids: np.ndarray, n: int, ring: int = 1) -> np.ndarray:
 def build_coarse_levels(N: int, hdi: HHODegreeInfo, problem: FictdomProblem,
                         eta: float, int_refsteps: int, *, device,
                         dtype=DEFAULT_DTYPE, fitted: str = "lean",
-                        mg_coarsest: int = 8) -> Dict[int, LevelData]:
+                        mg_coarsest: int = 8,
+                        mixed: bool = False) -> Dict[int, LevelData]:
     """{n: LevelData} of the rediscretized levels N/2, ..., mg_coarsest,
     in the fine level's form and without right-hand sides (JAX
     build_coarse_level, without its disk cache): the V-cycle needs only
-    (dS or S, S_u, irr_ids, cut_ids) of each."""
+    (dS or S, S_u, irr_ids, cut_ids) of each. ``mixed``: build_level's."""
     return {n: build_level(n, hdi, problem, eta, int_refsteps,
                            device=device, dtype=dtype, fitted=fitted,
-                           with_rhs=False)
+                           with_rhs=False, mixed=mixed)
             for n in multigrid._mg_sizes(N, mg_coarsest)[1:]}
 
 
@@ -388,9 +492,9 @@ def band_galerkin_levels(levels: Dict[int, LevelData], hdi: HHODegreeInfo,
     in float64 from the finest level's (S_u, dS, irr_ids) by the
     multigrid pair-operator engine, then placed on the finest level's
     device in ``dtype``. The coarsest level carries the host eigh
-    pseudo-inverse of its dense operator. The JAX function's disk cache,
-    keyed by its problem, eta and int_refsteps arguments, is not
-    ported."""
+    pseudo-inverse of its dense operator, in float64. The JAX function's
+    disk cache, keyed by its problem, eta and int_refsteps arguments, is
+    not ported."""
     sizes = sorted(levels)
     N = sizes[-1]
     fine = levels[N]
@@ -419,8 +523,13 @@ def band_galerkin_levels(levels: Dict[int, LevelData], hdi: HHODegreeInfo,
                                                                 corr, fbs)
         factor = (None, None)
         if nc == sizes[0]:
-            factor = tuple(put(a) for a in multigrid.pinv_factor_host(
-                multigrid.pair_op_dense(nc, const, corr, fbs)))
+            # kept in float64 whatever ``dtype``: the coarsest Galerkin
+            # operator's condition number is ~1e5, and a float32 factor
+            # floors the outer CG (multigrid._coarse_solve casts)
+            factor = tuple(put(a, torch.float64)
+                           for a in multigrid.pinv_factor_host(
+                               multigrid.pair_op_dense(nc, const, corr,
+                                                       fbs)))
         out[nc] = multigrid.GalerkinLevel(
             put(multigrid.pair_op_kernel(const)), put(corr[0], torch.int64),
             put(corr[1], torch.int64), put(corr[2]), put(cells, torch.int64),
@@ -428,25 +537,32 @@ def band_galerkin_levels(levels: Dict[int, LevelData], hdi: HHODegreeInfo,
     return out
 
 
+def _level_S(level: LevelData) -> torch.Tensor:
+    """dS of a lean level, S of a full one."""
+    cond = level.cond
+    return cond.dS if isinstance(cond, cells_last.UniformCondCL) else cond.S
+
+
 def level_multigrid(levels: Dict[int, LevelData], hdi: HHODegreeInfo, *,
                     mg_coarsest: int = 8, n_smooth: int = 1,
                     patch_ring: int = 1, patch_colors: int = 1,
                     cheb_degree: int = 4, patch_sweeps: int = 1,
                     smoother: str = "chebyshev", galerkin=None,
-                    gamma: int = 1) -> multigrid.Multigrid:
+                    gamma: int = 1, dtype=None) -> multigrid.Multigrid:
     """The V-cycle over ``levels`` ({n: LevelData}, the finest included):
     ``smoother`` (multigrid.build_multigrid: Chebyshev(cheb_degree) over
     block-Jacobi, or damped block-Jacobi or Jacobi), then the
     interface-patch smoother on the cut cells grown by ``patch_ring``.
     ``galerkin`` ({n: GalerkinLevel} of band_galerkin_levels) and
-    ``gamma`` go to build_multigrid."""
+    ``gamma`` go to build_multigrid. ``dtype``: the V-cycle's (every
+    level's operator is cast to it), by default the finest level's."""
     N = max(levels)
     lean = {n: isinstance(lev.cond, cells_last.UniformCondCL)
             for n, lev in levels.items()}
+    dtype = _level_S(levels[N]).dtype if dtype is None else dtype
     return multigrid.build_multigrid(
         N, bases.face_basis_size(hdi.face_degree),
-        {n: lev.cond.dS if lean[n] else lev.cond.S
-         for n, lev in levels.items()},
+        {n: _level_S(lev).to(dtype) for n, lev in levels.items()},
         hdi=hdi, coarsest=mg_coarsest, n_smooth=n_smooth,
         cut_ids_per_level={n: expand_ring(lev.cut_ids, n, patch_ring)
                            for n, lev in levels.items()},
@@ -526,48 +642,90 @@ def recover_local(fsys: FaceSystem, level: LevelData, hdi: HHODegreeInfo,
     return cells_last.solve_recover_cl(fsys.sys, level.cond, x, fsys.gF_cl)
 
 
+def _in_dtype(fn: Callable, dtype) -> Callable:
+    """fn run in ``dtype``: its argument (a tensor or a NamedTuple of
+    them) is cast to ``dtype`` and its result back to the argument's
+    dtype. Where the two agree, the casts are no-ops."""
+    def call(x):
+        back = cg._leaves(x)[0].dtype
+        return cg._map(lambda a: a.to(back),
+                       fn(cg._map(lambda a: a.to(dtype), x)))
+    return call
+
+
 def mg_preconditioner(fine: LevelData, N: int, hdi: HHODegreeInfo,
                       problem: FictdomProblem, eta: float, int_refsteps: int,
                       *, device, dtype=DEFAULT_DTYPE, fitted: str = "lean",
                       mg_coarsest: int = 8, mg_galerkin: bool = False,
                       mg_gamma: int = 1, timings: Optional[dict] = None,
+                      mixed: bool = False, mg_f32: bool = False,
                       **vcycle) -> Callable:
     """The V-cycle of solve_fictdom_structured over ``fine`` and its
-    rediscretized coarse levels N/2, ..., ``mg_coarsest`` (with
+    rediscretized coarse levels N/2, ..., ``mg_coarsest`` (built in
+    ``dtype``, with the float64 cut splice if ``mixed``; with
     ``mg_galerkin`` the exact Galerkin coarse operators instead), as the
-    preconditioner callable of CG. ``vcycle``: level_multigrid's
-    smoother keywords. Phase times go into ``timings``:
-    assemble_coarse_s, galerkin_setup_s, mg_setup_s."""
+    preconditioner callable of CG. The V-cycle runs in the fine level's
+    dtype, or in float32 with ``mg_f32``; the callable casts a residual
+    of another dtype to it and the result back. ``vcycle``:
+    level_multigrid's smoother keywords. Phase times go into
+    ``timings``: assemble_coarse_s, galerkin_setup_s, mg_setup_s."""
     timings = {} if timings is None else timings
     t0 = time.perf_counter()
     levels = {N: fine}
     levels.update(build_coarse_levels(
         N, hdi, problem, eta, int_refsteps, device=device, dtype=dtype,
-        fitted=fitted, mg_coarsest=mg_coarsest))
+        fitted=fitted, mg_coarsest=mg_coarsest, mixed=mixed))
     synchronize(device)
     timings["assemble_coarse_s"] = time.perf_counter() - t0
+    mg_dtype = torch.float32 if mg_f32 else _level_S(fine).dtype
     galerkin = None
     if mg_galerkin and len(levels) > 1:
         t0 = time.perf_counter()
-        galerkin = band_galerkin_levels(levels, hdi, dtype=dtype)
+        galerkin = band_galerkin_levels(levels, hdi, dtype=mg_dtype)
         synchronize(device)
         timings["galerkin_setup_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     mg = level_multigrid(levels, hdi, mg_coarsest=mg_coarsest,
-                         galerkin=galerkin, gamma=mg_gamma, **vcycle)
+                         galerkin=galerkin, gamma=mg_gamma, dtype=mg_dtype,
+                         **vcycle)
     synchronize(device)
     timings["mg_setup_s"] = time.perf_counter() - t0
-    return mg.precondition
+    return _in_dtype(mg.precondition, mg_dtype)
+
+
+def segmented_cg(apply_A: Callable, b, diag, params: cg.CGParams,
+                 segment: int, precond: Optional[Callable] = None
+                 ) -> cg.CGResult:
+    """PCG as warm-started segments of ``segment`` iterations (JAX
+    solve_segments): each segment restarts from the true residual of the
+    last one's x and tests against the first residual's norm, until one
+    converges or diverges or the segments' counts sum to at least
+    params.max_iter. Returns the last segment's result with the summed
+    count (and no history)."""
+    seg = dataclasses.replace(params, max_iter=segment)
+    nr0 = torch.sqrt(cg._vdot(b, b))
+    x, total = None, 0
+    while True:
+        res = cg.conjugated_gradient(apply_A, b, diag, seg, precond=precond,
+                                     x0=x, nr0=nr0)
+        x, total = res.x, total + res.iterations
+        if res.exit_reason in (cg.CONVERGED, cg.DIVERGED) or \
+                total >= params.max_iter:
+            return res._replace(iterations=total, history=None)
 
 
 def solve_level(level: LevelData, N: int, hdi: HHODegreeInfo,
                 problem: FictdomProblem, precond: str,
                 cg_params: cg.CGParams, *, apply_mg: Optional[Callable] = None,
-                device, timings: Optional[dict] = None):
+                device, timings: Optional[dict] = None, cg_f64: bool = False,
+                cg_segment: int = 0):
     """(local [C, d], CGResult): face_system, PCG preconditioned by
     ``apply_mg`` (mg_preconditioner's, with precond='mg') or by the face
-    system's block-Jacobi or Jacobi, and recover_local. Phase times go
-    into ``timings``: setup_s, cg_s, recover_s."""
+    system's block-Jacobi or Jacobi, and recover_local. ``cg_f64``: on a
+    float32 system, CG's vectors and recurrences are float64 around the
+    float32 operator and preconditioner. ``cg_segment`` > 0: segmented_cg
+    with segments of that many iterations. Phase times go into
+    ``timings``: setup_s, cg_s, recover_s."""
     timings = {} if timings is None else timings
     t0 = time.perf_counter()
     fsys = face_system(level, N, hdi, problem, precond, device=device)
@@ -575,29 +733,29 @@ def solve_level(level: LevelData, N: int, hdi: HHODegreeInfo,
     timings["setup_s"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    res = cg.conjugated_gradient(
-        fsys.apply_S, fsys.rhs, fsys.diag, cg_params,
-        precond=apply_mg if precond == "mg" else fsys.precond)
+    sys_dtype = fsys.rhs.H.dtype
+    cg_dtype = torch.float64 if cg_f64 else sys_dtype
+    pre = apply_mg if precond == "mg" else fsys.precond
+    args = (_in_dtype(fsys.apply_S, sys_dtype), _cast(fsys.rhs, cg_dtype),
+            _cast(fsys.diag, cg_dtype), cg_params)
+    pre = None if pre is None else _in_dtype(pre, sys_dtype)
+    res = segmented_cg(*args, cg_segment, precond=pre) if cg_segment else \
+        cg.conjugated_gradient(*args, precond=pre)
     synchronize(device)
     timings["cg_s"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    local = recover_local(fsys, level, hdi, res.x)
+    local = recover_local(fsys, level, hdi, _cast(res.x, sys_dtype))
     synchronize(device)
     timings["recover_s"] = time.perf_counter() - t0
     return local, res
 
 
 # Options of the JAX solve that the port leaves out: name -> (the value
-# that is accepted, what the option is). The first four are TPU precision
-# workarounds and the last three are experiments the JAX package measured
-# as no gain (ROADMAP.md, "Not ported"), as are W-cycles on the
-# rediscretized hierarchy (mg_gamma > 1 without mg_galerkin).
+# that is accepted, what the option is). They are experiments the JAX
+# package measured as no gain (ROADMAP.md, "Not ported"), as are W-cycles
+# on the rediscretized hierarchy (mg_gamma > 1 without mg_galerkin).
 _NOT_PORTED = {
-    "mixed": (False, "the mixed-precision cut splice"),
-    "mg_f32": (False, "the float32 V-cycle"),
-    "cg_f64": (False, "mixed-precision CG"),
-    "cg_segment": (0, "segmented CG"),
     "mg_transfer": ("uniform", "a transfer other than the uniform "
                     "reconstruction one"),
     "mg_deflate": (0, "interface-band deflation"),
@@ -646,7 +804,9 @@ def solve_fictdom_structured(
         n_smooth: int = 1, patch_ring: int = 1, patch_colors: int = 1,
         cheb_degree: int = 4, patch_sweeps: int = 1,
         mg_smoother: str = "chebyshev", mg_galerkin: bool = False,
-        mg_gamma: int = 1, device=None, dtype=DEFAULT_DTYPE,
+        mg_gamma: int = 1, mixed: Optional[bool] = None,
+        mg_f32: bool = False, cg_f64: Optional[bool] = None,
+        cg_segment: int = 0, device=None, dtype=DEFAULT_DTYPE,
         **unported) -> StructuredFictdomResult:
     """End-to-end fictdom solve on the generated N x N mesh at HHO degree
     ``degree`` (cell degree k+1, face degree k).
@@ -665,8 +825,19 @@ def solve_fictdom_structured(
     ``galerkin_setup_s``), with ``mg_gamma`` coarse visits per gap of the
     top two.
 
-    Departures from the JAX solve: ``fitted="uniform"`` builds the lean
-    system (the same numbers without the O(N^2) broadcast planes; its
+    Precision (the module docstring): ``mixed`` (the float32 system with
+    the float64 cut splice, on every level), ``mg_f32`` (the float32
+    V-cycle), ``cg_f64`` (float64 CG around a float32 system; None: on
+    unless ``mg_f32`` or ``cg_segment``, as JAX's rule under x64, which
+    ``dtype=torch.float64`` stands for here) and ``cg_segment``
+    (segmented_cg). ``dtype=torch.float32`` runs everything in float32,
+    the JAX package without x64.
+
+    Departures from the JAX solve: ``mixed=None`` means False at every
+    degree (the JAX package turns it on at k >= 2, because the TPU has no
+    native float64; the port's default is float64 throughout);
+    ``fitted="uniform"`` builds the lean system (the same numbers without
+    the O(N^2) broadcast planes; its
     Jacobi diagonal is the whole operator's, as JAX's from the broadcast
     S); the Jacobi smoother on a lean level takes the whole operator's
     diagonal, where the JAX package's fails; ``mg_galerkin=True`` with
@@ -682,6 +853,12 @@ def solve_fictdom_structured(
     _check_precond(precond)
     _check_fitted(fitted)
     _check_unported(unported)
+    mixed = bool(mixed)
+    _check_mixed(mixed, dtype)
+    if cg_segment < 0:
+        raise ValueError(f"cg_segment={cg_segment!r}: expected 0 or more")
+    if cg_f64 is None:
+        cg_f64 = dtype == torch.float64 and not mg_f32 and not cg_segment
     _check_galerkin(mg_galerkin, mg_gamma, fitted, precond)
     if mg_smoother not in multigrid.SMOOTHERS:
         raise ValueError(f"mg_smoother={mg_smoother!r}: expected one of "
@@ -701,19 +878,22 @@ def solve_fictdom_structured(
     timings = {}
 
     fine = build_level(N, hdi, problem, eta, int_refsteps, device=device,
-                       dtype=dtype, fitted=fitted, timings=timings)
+                       dtype=dtype, fitted=fitted, timings=timings,
+                       mixed=mixed)
     apply_mg = None
     if precond == "mg":
         apply_mg = mg_preconditioner(
             fine, N, hdi, problem, eta, int_refsteps, device=device,
             dtype=dtype, fitted=fitted, mg_coarsest=mg_coarsest,
             mg_galerkin=mg_galerkin, mg_gamma=mg_gamma, timings=timings,
-            n_smooth=n_smooth, patch_ring=patch_ring,
-            patch_colors=patch_colors, cheb_degree=cheb_degree,
-            patch_sweeps=patch_sweeps, smoother=mg_smoother)
+            mixed=mixed, mg_f32=mg_f32, n_smooth=n_smooth,
+            patch_ring=patch_ring, patch_colors=patch_colors,
+            cheb_degree=cheb_degree, patch_sweeps=patch_sweeps,
+            smoother=mg_smoother)
     local, res = solve_level(fine, N, hdi, problem, precond, cg_params,
                              apply_mg=apply_mg, device=device,
-                             timings=timings)
+                             timings=timings, cg_f64=cg_f64,
+                             cg_segment=cg_segment)
 
     h1 = None
     if compute_h1:

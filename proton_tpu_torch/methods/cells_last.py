@@ -72,6 +72,34 @@ def set_columns(a, ids, b):
     return a
 
 
+def from_row_major(cond_rm) -> CondensedCL:
+    """condensation.CondensedSystem ([C, ...]) -> CondensedCL: the
+    transpose plus the back-substitution operators X, y, computed here in
+    cond_rm's dtype with robust_spd_solve. The float64 cut class of the
+    mixed-precision system passes through here before it is rounded to
+    float32, so X and y carry the float64 solve and only their values
+    are rounded."""
+    from ..core.ops import robust_spd_solve
+
+    C, nfd = cond_rm.bF.shape
+    cbs = cond_rm.fT.shape[1]
+    XY = robust_spd_solve(cond_rm.ATT, torch.cat(
+        [cond_rm.ATF, cond_rm.fT[..., None]], dim=-1))
+    return CondensedCL(cond_rm.S.permute(1, 2, 0).reshape(nfd * nfd, C),
+                       cond_rm.bF.T.contiguous(),
+                       XY[..., :nfd].permute(1, 2, 0).reshape(cbs * nfd, C),
+                       XY[..., nfd].T.contiguous())
+
+
+def set_cells(cond: CondensedCL, ids, sub: CondensedCL) -> CondensedCL:
+    """Overwrite the columns ``ids`` of every member with a small
+    condensed batch, in place (the splice of the float64 cut class into
+    the float32 system); returns cond."""
+    for a, b in zip(cond, sub):
+        set_columns(a, ids, b.to(a.dtype))
+    return cond
+
+
 # ---------------------------------------------------------------------------
 # Face grids with the coefficient axis leading
 # ---------------------------------------------------------------------------
@@ -558,7 +586,10 @@ def uniform_recover_cl(sys: StructuredFaceSystem, ucond: UniformCondCL, X_u,
     uF = grid_gather_cl(sys, mask_cl(sys, x))
     if gF_cl is not None:
         uF = uF + gF_cl
-    Ai = torch.linalg.inv(_on(sys, ATT_u, uF.dtype))
+    # inverted in ATT_u's own dtype (float64), then rounded, as the JAX
+    # package does for a float32 system
+    Ai = torch.linalg.inv(_on(sys, ATT_u, _as_tensor(ATT_u).dtype)).to(
+        uF.dtype)
     uT = Ai @ ucond.fT - _on(sys, X_u, uF.dtype) @ uF
     irr = _ids_np(irr_ids)
     if len(irr):

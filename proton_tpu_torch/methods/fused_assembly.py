@@ -245,7 +245,8 @@ def fused_local_operator(corners, bar, diam, meas, normals, fgeo,
     """lc [d*d, C] for packed cells-last inputs (see pack_inputs). CUDA
     tensors launch the kernel (and count the launch in
     ``fused_local_operator.launches``, with its cell count appended to
-    ``fused_local_operator.launch_cells``, which keeps the last 64); CPU
+    ``fused_local_operator.launch_cells`` and its dtype to
+    ``fused_local_operator.launch_dtypes``, which keep the last 64); CPU
     tensors take the plain version."""
     inputs = (corners, bar, diam, meas, normals, fgeo)
     C = corners.shape[-1]
@@ -271,11 +272,21 @@ def fused_local_operator(corners, bar, diam, meas, normals, fgeo,
     _launch(inputs, out, cell_degree, face_degree)
     fused_local_operator.launches += 1
     fused_local_operator.launch_cells.append(C)
+    fused_local_operator.launch_dtypes.append(corners.dtype)
     return out
 
 
 fused_local_operator.launches = 0
 fused_local_operator.launch_cells = collections.deque(maxlen=64)
+fused_local_operator.launch_dtypes = collections.deque(maxlen=64)
+
+
+def reset_launch_counts() -> None:
+    """Set fused_local_operator's launch count to 0 and empty its lists of
+    cell counts and dtypes."""
+    fused_local_operator.launches = 0
+    fused_local_operator.launch_cells.clear()
+    fused_local_operator.launch_dtypes.clear()
 
 
 def fitted_local_operator(mesh, geom, hdi: HHODegreeInfo,

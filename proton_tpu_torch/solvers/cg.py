@@ -35,6 +35,14 @@ class CGParams:
     max_iter: int = 1000
     apply_preconditioner: bool = False
     record_history: bool = False
+    # the reference's progress line every 100 iterations
+    # (solver_cg.hpp:96-100), printed from the norm the exit test reads
+    verbose: bool = False
+    # residual replacement (van der Vorst and Ye): every m iterations the
+    # recurred residual is replaced by the true residual b - A x, at the
+    # cost of one operator apply. In float32 the recurred residual drifts
+    # from the true one on the cond ~ N^2 system and CG stagnates.
+    recompute_every: int = 0
 
 
 class CGResult(NamedTuple):
@@ -69,12 +77,19 @@ def _axpy(alpha, x, y):
 def conjugated_gradient(apply_A: Callable, b, diag=None,
                         params: CGParams = CGParams(),
                         precond: Optional[Callable] = None,
-                        vdot: Optional[Callable] = None) -> CGResult:
-    """PCG from x0 = 0 (solver_cg.hpp:63-144). With ``apply_preconditioner``
-    and no explicit ``precond``, the Jacobi preconditioner 1/diag is used
-    (``diag`` required). ``vdot``: the inner product, by default the sum
-    over all members; a solve whose vectors are split over processes
-    passes one that completes the sum across them."""
+                        vdot: Optional[Callable] = None, x0=None,
+                        nr0=None) -> CGResult:
+    """PCG (solver_cg.hpp:63-144), from x0 = 0 unless ``x0`` is given.
+    With ``apply_preconditioner`` and no explicit ``precond``, the Jacobi
+    preconditioner 1/diag is used (``diag`` required). ``vdot``: the
+    inner product, by default the sum over all members; a solve whose
+    vectors are split over processes passes one that completes the sum
+    across them.
+
+    ``x0``/``nr0`` run one segment of a segmented solve: the first
+    residual is the true residual b - A x0, and the exit tests divide by
+    the caller's ``nr0`` (a scalar tensor or float, the norm of the whole
+    solve's first residual) instead of this segment's."""
     vdot = _vdot if vdot is None else vdot
     if precond is None:
         if params.apply_preconditioner:
@@ -88,22 +103,39 @@ def conjugated_gradient(apply_A: Callable, b, diag=None,
             def precond(r):
                 return r
 
-    x = _map(torch.zeros_like, b)
-    r = b
+    def true_residual(x):
+        return _map(torch.sub, b, apply_A(x))
+
+    if x0 is None:
+        x, r = _map(torch.zeros_like, b), b
+    else:
+        x = x0
+        r = true_residual(x)
     d = precond(r)
     rho = vdot(r, d)
-    nr0 = torch.sqrt(vdot(r, r))
+    nr_init = torch.sqrt(vdot(r, r))
+    if nr0 is None:
+        nr0 = nr_init
+    # the host's copy of nr/nr0, read once per iteration by the exit test
+    rel = 1.0 if x0 is None and nr0 is nr_init else None
     hist = None
     if params.record_history:
         hist = torch.full((params.max_iter + 2,), float("nan"),
-                          dtype=nr0.dtype, device=nr0.device)
-        hist[0] = 1.0
-    it, exit_code, rel = 0, -1, 1.0
+                          dtype=nr_init.dtype, device=nr_init.device)
+        hist[0] = nr_init / nr0
+    it, exit_code = 0, -1
+    m = params.recompute_every
     while exit_code < 0:
+        if params.verbose and it % 100 == 0:
+            if rel is None:
+                rel = float(nr_init / nr0)
+            print(f" -> Iteration {it}, rr = {rel}", flush=True)
         y = apply_A(d)
         alpha = rho / vdot(d, y)
         x = _axpy(alpha, d, x)
         r = _axpy(-alpha, y, r)
+        if m and (it + 1) % m == 0:
+            r = true_residual(x)
         rel_t = torch.sqrt(vdot(r, r)) / nr0
         if hist is not None:
             hist[min(it + 1, len(hist) - 1)] = rel_t

@@ -828,8 +828,11 @@ def _coarse_factor(Ac):
 
 
 def _coarse_solve(fac, rhs):
+    """Apply the (Q, winv) factor in the factor's dtype and return the
+    result in the rhs dtype: the Galerkin hierarchy's host factor stays
+    float64 under a float32 V-cycle, as in the JAX package."""
     Q, winv = fac
-    return Q @ (winv * (Q.T @ rhs))
+    return (Q @ (winv * (Q.T @ rhs.to(Q.dtype)))).to(rhs.dtype)
 
 
 def _flatten(x: GridVecCL):

@@ -2,9 +2,11 @@
 its line against the JAX package at 32^2 k=1, its timed assembly
 against the fully assembled level, its keys against the JAX bench's
 (read from bench.py without importing it), the stock form's two lines, a
-failed k=2 run, the knobs that are not ported, and the device rule."""
+failed k=2 run, the knobs that reach the library solve, the line of each
+precision mode, the knobs that are not ported, and the device rule."""
 
 import ast
+import inspect
 import json
 import os
 import subprocess
@@ -57,15 +59,16 @@ def _clean_env(**knobs):
 @pytest.fixture(scope="module")
 def run32():
     """(result, local, the timed assembly's condensed system) of the bench
-    at 32^2 k=1, tol 1e-10, on the CPU; the accepted values of three
-    unported knobs are set and pass."""
+    at 32^2 k=1, tol 1e-10, on the CPU, precision unset (float64
+    throughout); the accepted values of three unported knobs are set and
+    pass."""
     with pytest.MonkeyPatch.context() as mp:
         for name in [k for k in os.environ if k.startswith("PROTON_BENCH_")]:
             mp.delenv(name)
         mp.setenv("PROTON_BENCH_TOL", "1e-10")
-        mp.setenv("PROTON_BENCH_PRECISION", "f64")
+        mp.setenv("PROTON_BENCH_MGTRANSFER", "uniform")
         mp.setenv("PROTON_BENCH_PALLAS", "1")
-        mp.setenv("PROTON_BENCH_PRECOND", "mg")
+        mp.setenv("PROTON_BENCH_CHEBOPS", "exact")
         return bench._run_bench(32, 1, device="cpu")
 
 
@@ -188,23 +191,179 @@ def test_failed_k2_run_exits_nonzero():
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("PRECISION", "mixed"), ("PRECISION", "f32"), ("SEGMENT", "50"),
-    ("SEGSTYLE", "chunk"), ("CHUNK", "3"), ("CGF64", "1"), ("RECOMP", "50"),
-    ("MGTRANSFER", "cut"), ("MGTRANSFER", "smoothed"), ("DEFLATE", "2"),
-    ("CHEBOPS", "mixed"), ("CHEBOPS", "uniform"), ("PALLAS", "0"),
-    ("UNIFORM", "0"), ("LEAN", "0"), ("PRECOND", "block_jacobi"),
-    ("PRECOND", "jacobi"), ("GALERKIN", "1"), ("GAMMA", "2"),
-    ("COARSEST", "16"), ("NSMOOTH", "2"), ("RING", "2"), ("CHEB", "2"),
-    ("PCOLORS", "2"), ("MAXIT", "100"), ("H1", "0"), ("NORTHSTAR", "0")])
+    ("SEGSTYLE", "chunk"), ("CHUNK", "3"), ("MGTRANSFER", "cut"),
+    ("MGTRANSFER", "smoothed"), ("DEFLATE", "2"), ("CHEBOPS", "mixed"),
+    ("CHEBOPS", "uniform"), ("PALLAS", "0"), ("GAMMA", "2")])
 def test_unported_knobs_raise(monkeypatch, knob, value):
     """Every JAX knob the port leaves out raises NotImplementedError
     naming ROADMAP's "Not ported" before any work, one case per knob and
-    non-default value, and every knob of _NOT_PORTED has a case."""
+    non-default value, and every knob of _NOT_PORTED has a case; GAMMA > 1
+    without GALERKIN=1 (a W-cycle on the rediscretized hierarchy) too."""
     monkeypatch.setenv(f"PROTON_BENCH_{knob}", value)
     with pytest.raises(NotImplementedError, match="Not ported"):
         bench.run_bench(8, 1, device="cpu")
     cases = test_unported_knobs_raise.pytestmark[0].args[1]
-    assert {f"PROTON_BENCH_{k}" for k, _ in cases} == set(bench._NOT_PORTED)
+    assert {f"PROTON_BENCH_{k}" for k, _ in cases} == \
+        set(bench._NOT_PORTED) | {"PROTON_BENCH_GAMMA"}
+
+
+def _spy(monkeypatch, names):
+    """Wrap the functions ``names`` of the port's fictdom_structured,
+    which the bench calls: {name: [the bound arguments of each call]}."""
+    calls = {name: [] for name in names}
+    for name in names:
+        fn = getattr(fs, name)
+
+        def wrapper(*args, _fn=fn, _name=name, **kwargs):
+            sig = inspect.signature(_fn)
+            bound = dict(sig.bind(*args, **kwargs).arguments)
+            for p in sig.parameters.values():
+                if p.kind == p.VAR_KEYWORD:
+                    bound.update(bound.pop(p.name, {}))
+            calls[_name].append(bound)
+            return _fn(*args, **kwargs)
+
+        monkeypatch.setattr(fs, name, wrapper)
+    return calls
+
+
+def _timed_call(calls, name):
+    """The arguments of the timed solve_level call (the last one), or of
+    the only call of another function."""
+    return calls[name][-1]
+
+
+# knobs -> (function of the port the bench passes it to, the keyword
+# there, the value it must arrive with), or None where the check is the
+# line's or the stock form's. One case per knob value the JAX bench
+# takes that the port's bench did not take before.
+KNOB_CASES = [
+    ({"PRECISION": "mixed"}, ("classify_cells", "mixed", True)),
+    ({"PRECISION": "f64"}, ("mg_preconditioner", "mg_f32", True)),
+    ({"SEGMENT": "4"}, ("solve_level", "cg_segment", 4)),
+    ({"CGF64": "1"}, ("solve_level", "cg_f64", True)),
+    ({"RECOMP": "5"}, ("solve_level", "cg_params.recompute_every", 5)),
+    ({"UNIFORM": "0"}, ("solve_level", "level.cond", "CondensedCL")),
+    ({"LEAN": "0"}, ("lean_level", "N", 8)),
+    ({"PRECOND": "block_jacobi"}, ("solve_level", "precond",
+                                   "block_jacobi")),
+    ({"PRECOND": "jacobi", "LEAN": "0"}, ("solve_level", "precond",
+                                          "jacobi")),
+    ({"GALERKIN": "1", "COARSEST": "4", "GAMMA": "2"},
+     ("mg_preconditioner", "mg_galerkin", True)),
+    ({"COARSEST": "4"}, ("mg_preconditioner", "mg_coarsest", 4)),
+    # with a coarse level at 4^2, so that 8^2 is smoothed
+    ({"NSMOOTH": "2", "COARSEST": "4"}, ("mg_preconditioner", "n_smooth",
+                                         2)),
+    ({"RING": "2", "COARSEST": "4"}, ("mg_preconditioner", "patch_ring",
+                                      2)),
+    ({"CHEB": "2", "COARSEST": "4"}, ("mg_preconditioner", "cheb_degree",
+                                      2)),
+    ({"PCOLORS": "2", "COARSEST": "4"}, ("mg_preconditioner",
+                                         "patch_colors", 2)),
+    ({"MAXIT": "100"}, ("solve_level", "cg_params.max_iter", 100)),
+    ({"H1": "0"}, None),
+    ({"NORTHSTAR": "0"}, None)]
+
+# the keyword of solve_fictdom_structured each knob sets, for the line's
+# "options"
+KNOB_OPTIONS = {"PRECISION": None, "SEGMENT": ("cg_segment", int),
+                "CGF64": ("cg_f64", bool), "UNIFORM": None,
+                "LEAN": None, "PRECOND": ("precond", str),
+                "GALERKIN": ("mg_galerkin", bool),
+                "GAMMA": ("mg_gamma", int),
+                "COARSEST": ("mg_coarsest", int),
+                "NSMOOTH": ("n_smooth", int), "RING": ("patch_ring", int),
+                "CHEB": ("cheb_degree", int),
+                "PCOLORS": ("patch_colors", int)}
+
+
+@pytest.mark.parametrize("knobs,reaches", KNOB_CASES,
+                         ids=["-".join(f"{k}={v}" for k, v in c[0].items())
+                              for c in KNOB_CASES])
+def test_knob_reaches_solve(monkeypatch, capsys, knobs, reaches):
+    """Each knob the port's bench now takes arrives at the port's library
+    function with the keyword of the JAX bench's meaning (a spy on
+    fs.classify_cells, lean_level, mg_preconditioner and solve_level), the
+    line's "options" name the solve_fictdom_structured keyword, and the
+    run at 8^2 on the CPU converges. H1=0 leaves h1_error null;
+    NORTHSTAR=0 makes the stock form print the k=1 line alone."""
+    for name in [k for k in os.environ if k.startswith("PROTON_BENCH_")]:
+        monkeypatch.delenv(name)
+    for knob, value in knobs.items():
+        monkeypatch.setenv(f"PROTON_BENCH_{knob}", value)
+    monkeypatch.setenv("PROTON_BENCH_TOL", "1e-9")
+    calls = _spy(monkeypatch, ("classify_cells", "lean_level",
+                               "mg_preconditioner", "solve_level"))
+    if "NORTHSTAR" in knobs:
+        monkeypatch.setenv("PROTON_BENCH_N", "8")
+        assert bench.main(["--device", "cpu"]) == 0
+        rows = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()
+                if ln.startswith("{")]
+        assert len(rows) == 1 and "k2" not in rows[0]
+        result = rows[0]
+    else:
+        result = bench.run_bench(8, 1, device="cpu")
+    assert result["cg_exit"] == cg.CONVERGED, result
+    if reaches is not None:
+        fn, path, value = reaches
+        head, *rest = path.split(".")
+        got = _timed_call(calls, fn)[head]
+        for attr in rest:
+            got = getattr(got, attr)
+        if value == "CondensedCL":
+            got = type(got).__name__
+        assert got == value, (fn, path, got)
+    for knob, value in knobs.items():
+        if KNOB_OPTIONS.get(knob) is not None:
+            key, kind = KNOB_OPTIONS[knob]
+            assert result["options"][key] == (kind(int(value)) if kind is bool
+                                              else kind(value))
+    opts = result["options"]
+    assert opts["fitted"] == ("full" if knobs.get("UNIFORM") == "0" else
+                              "uniform" if knobs.get("LEAN") == "0" or
+                              knobs.get("PRECISION") == "f64" else "lean")
+    if knobs.get("H1") == "0":
+        assert result["h1_error"] is None and result["h1_s"] == 0.0
+    else:
+        assert np.isfinite(result["h1_error"])
+
+
+def test_precision_lines(monkeypatch):
+    """The line of each precision mode at 8^2 k=1 on the CPU: the JAX
+    bench's label, every key of the JAX bench's line, cut_splice_s > 0
+    with mixed alone, the options of the mode (mixed: the float32 system
+    in CG segments of 50; f64: the float32 V-cycle; f32: float32
+    throughout), and convergence; the timed assembly assembles the cut
+    class at k=1 in every mode (mixed: in float32, before the float64
+    splice, as the JAX bench). f32 refuses k=2, an unknown precision
+    raises ValueError."""
+    keys, _ = _jax_bench_keys()
+    for name in [k for k in os.environ if k.startswith("PROTON_BENCH_")]:
+        monkeypatch.delenv(name)
+    monkeypatch.setenv("PROTON_BENCH_TOL", "1e-9")
+    calls = _spy(monkeypatch, ("assemble_level_cl",))
+    for precision, label in (("mixed", "mixed(f32+f64-cut)"),
+                             ("f64", "f64(f32-mg-precond)"),
+                             ("f32", "float32")):
+        monkeypatch.setenv("PROTON_BENCH_PRECISION", precision)
+        result = bench.run_bench(8, 1, device="cpu")
+        assert _timed_call(calls, "assemble_level_cl")["cut_class"]
+        assert set(keys) <= set(result)
+        assert result["precision"] == label
+        assert result["cg_exit"] == cg.CONVERGED
+        assert (result["cut_splice_s"] > 0.0) == (precision == "mixed")
+        opts = result["options"]
+        assert opts["mixed"] == (precision == "mixed")
+        assert opts["cg_segment"] == (50 if precision == "mixed" else 0)
+        assert opts["mg_f32"] == (precision == "f64")
+        assert opts["dtype"] == ("float32" if precision == "f32"
+                                 else "float64")
+    with pytest.raises(ValueError, match="k <= 1"):
+        bench.run_bench(8, 2, device="cpu")
+    monkeypatch.setenv("PROTON_BENCH_PRECISION", "f16")
+    with pytest.raises(ValueError, match="PRECISION"):
+        bench.run_bench(8, 1, device="cpu")
 
 
 def test_bench_without_device_raises_without_cuda(monkeypatch):

@@ -298,3 +298,63 @@ def test_family_solve_on_card_matches_cpu():
     assert torch.all((card.iterations - host.iterations).abs() <= 2)
     assert torch.all((card.h1_error - host.h1_error).abs() <
                      1e-8 * host.h1_error)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 2])
+def test_fused_assembly_float32_on_mixed_lean_shapes(k):
+    """K1 in float32 at the shapes the mixed lean path gives it on the
+    64^2 level (d = 14 at k=1, 22 at k=2): the displaced cells of the
+    float32 classification and one cell of side 1/64, against its plain
+    float32 version, max|diff| / max|plain| < 1e-4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from proton_tpu_torch.core.mesh import unit_cell_mesh
+
+    mesh, _, _, _, _, dist = fs.classify_cells(
+        64, fs.default_problem(), 4, device=torch.device("cuda"), mixed=True)
+    assert mesh.points.dtype == torch.float32 and len(dist) > 0
+    sub, gsub = fs._gather_cells(mesh, cell_geometry(mesh),
+                                 torch.as_tensor(dist, device="cuda"))
+    one = fs._cast(unit_cell_mesh(1.0 / 64, device="cuda"), torch.float32)
+    for inp in (fa.pack_inputs(sub, gsub),
+                fa.pack_inputs(one, cell_geometry(one))):
+        out = fa.fused_local_operator(*inp, k + 1, k)
+        torch.cuda.synchronize()
+        assert fa.fused_local_operator.launch_dtypes[-1] == torch.float32
+        ref = fa.fitted_local_operator_plain(*inp, k + 1, k)
+        assert float((out - ref).abs().max() / ref.abs().max()) < 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("options", [dict(mixed=True), dict(mg_f32=True)])
+def test_precision_modes_on_card_match_cpu(options):
+    """The mixed system (K1 in float32 on the displaced cells of every
+    level) and the float32 V-cycle at 32^2 k=2, tol 1e-9, on the card
+    against the same solve on the CPU: iteration counts within 3; with
+    mg_f32, H1 within rtol 1e-7; with mixed, K1 ran in float32, and the
+    two H1 errors differ by at most a tenth of the float32 system's noise
+    (its H1 less the float64 solve's on the CPU: 5.0e-5 against 2.3e-5
+    here; the card and the CPU round it 2.5% of that apart on an H100)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    params = cg.CGParams(convergence_threshold=1e-9,
+                         divergence_threshold=1e8, max_iter=50000,
+                         apply_preconditioner=True)
+    fa.reset_launch_counts()
+    card = fs.solve_fictdom_structured(32, 2, cg_params=params, **options)
+    dtypes = list(fa.fused_local_operator.launch_dtypes)
+    host = fs.solve_fictdom_structured(32, 2, cg_params=params,
+                                       device="cpu", **options)
+    assert card.exit_reason == host.exit_reason == cg.CONVERGED
+    assert abs(card.iterations - host.iterations) <= 3
+    mixed = options.get("mixed", False)
+    assert (torch.float32 in dtypes) == mixed
+    assert card.local.dtype == (torch.float32 if mixed else torch.float64)
+    if mixed:
+        f64 = fs.solve_fictdom_structured(32, 2, cg_params=params,
+                                          device="cpu")
+        noise = abs(host.h1_error - f64.h1_error)
+        assert abs(card.h1_error - host.h1_error) <= 0.1 * noise
+    else:
+        assert np.isclose(card.h1_error, host.h1_error, rtol=1e-7)

@@ -256,9 +256,9 @@ def test_unported_multigrid_options_raise():
     """Multigrid options of the JAX solve that are not ported raise
     NotImplementedError naming ROADMAP.md; their accepted values pass the
     check; an unknown keyword is a TypeError."""
-    for kw in (dict(cheb_ops="mixed"),
-               dict(mg_transfer="cut"), dict(mg_deflate=4),
-               dict(mg_gamma=2), dict(mg_f32=True), dict(mixed=True)):
+    for kw in (dict(cheb_ops="mixed"), dict(cheb_ops="uniform"),
+               dict(mg_transfer="cut"), dict(mg_transfer="smoothed"),
+               dict(mg_deflate=4), dict(mg_gamma=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             fs.solve_fictdom_structured(8, 1, device="cpu", **kw)
     with pytest.raises(TypeError, match="mg_smother"):

@@ -207,7 +207,7 @@ def test_jacobi_solve_and_unported_options():
                                     device="cpu")
     assert r.exit_reason == cg.CONVERGED
     assert np.isclose(r.h1_error, GATES[(16, 1)][1], rtol=1e-6)
-    for unported in (dict(mg_gamma=2), dict(cg_segment=25)):
+    for unported in (dict(mg_gamma=2), dict(mg_transfer="cut")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             fs.solve_fictdom_structured(8, 1, device="cpu", **unported)
     with pytest.raises(ValueError, match="mg_galerkin"):
