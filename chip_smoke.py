@@ -83,9 +83,9 @@ kernel of its own):
 18. [interface] condensed + uniform MG + cut-band Schwarz, tol 1e-9: the
     JAX gates at 16^2, 32^2 (k=0, 1) and 16^2 k=2, the full system
     against the condensed one at 16^2, kappa_2 = 3 on the block-Jacobi
-    branch at 64^2, then 256^2, 512^2, 1024^2 k=1 (H1 order 512 -> 1024
-    in [1.8, 2.2]) and torch.profiler over 10 of its CG iterations at
-    1024^2 (one scalar read per iteration, no host-to-device copy);
+    branch at 64^2, then 256^2 and 512^2 k=1 (H1 order 256 -> 512 in
+    [1.8, 2.2]) and torch.profiler over 10 of its CG iterations at 512^2
+    (one scalar read per iteration, no host-to-device copy);
 19. [agglomerate] the merge at 128^2 and 256^2 (seconds by part), plain
     classification and the fictdom solve on the merged mesh: area 1 to
     1e-12, no badly cut cell left, H1 order above 1.6;
@@ -104,12 +104,12 @@ options:
     iterations, ms per iteration, seconds per geometry by phase, peak
     memory); the app at its documented widths (-N 256 -k 1) with 8 of
     the documented 64 geometries (-B 8);
-    the ellipse and flower families at 256^2 B=2; two geometries at 256^2,
+    the ellipse and flower families at 256^2 B=2; two geometries at 128^2,
     tol 1e-10, each equal to the structured solve of the same circle (H1
     rtol 1e-8);
 22. [options] k=1, tol 1e-11: fitted="uniform" equal to fitted="lean" at
     256^2, the damped block-Jacobi and Jacobi multigrid smoothers against
-    the Chebyshev one at 128^2 (local dofs within 2e-8), and
+    the Chebyshev one at 64^2 (local dofs within 2e-8), and
     classify_level(method="full") equal to the band one at 1024^2;
 
 the Galerkin coarse hierarchy (solvers/multigrid.py's pair-operator
@@ -118,13 +118,13 @@ path's shapes) and parallel/ (torch.distributed; no kernel of its own):
 
 23. [galerkin] tol 1e-11: the JAX package's gates with mg_galerkin=True
     at 16^2, 32^2 k=1 (also mg_gamma=2) and 16^2 k=2 (iterations within
-    2, H1 rtol 1e-6 at k=1, 1e-4 at k=2); k=2 at 256^2 and 1024^2
+    2, H1 rtol 1e-6 at k=1, 1e-4 at k=2); k=2 at 256^2
     with iterations, ms per iteration, galerkin_setup_s, deviation pairs
-    per level, peak memory and K1's launches, each held against the
+    per level, peak memory and K1's launches, held against the
     rediscretized solve of the same N, k and tol, reused from phase 9
-    (local dofs within 1e-6 of max|local|; H1 rtol 1e-4, 5e-4 at
-    1024^2); torch.profiler over 20 Galerkin-MG
-    iterations at 1024^2 k=2 (`[profile_galerkin*]`: device time by
+    (local dofs within 1e-6 of max|local|; H1 rtol 1e-4); torch.profiler
+    over 20 Galerkin-MG
+    iterations at 256^2 k=2 (`[profile_galerkin*]`: device time by
     region and level, the Galerkin apply's conv and pairs by level,
     launches, busy share, one scalar read and no host-to-device copy per
     iteration); k=1 at 1024^2 capped at 300 iterations, where it stalls
@@ -157,9 +157,9 @@ mg_f32, cg_f64, cg_segment; K1 in float32 on their path):
     by level 1024^2 ... 8^2: one cell and the displaced cells at k=1 and
     k=2, the displaced cells of the float32 classification where their
     count differs, and every cell of the mixed 1024^2 mesh at k=1 and
-    k=2; (b) mg_f32=True at 1024^2 k=2, tol 1e-11, against phase 9's
+    k=2; (b) mg_f32=True at 256^2 k=2, tol 1e-11, against phase 9's
     solution (local dofs within 2e-8 of max|local|, H1 rtol 1e-4); (c) the
-    same at k=1 against phase 7's (local dofs 2e-8, H1 2e-3), and
+    same at 512^2 k=1 against phase 8's (local dofs 2e-8, H1 2e-3), and
     torch.profiler over 10 of its iterations beside phase 10's; (d) the
     mixed library solve at 1024^2 k=1 and k=2, tol 1e-6: CG exit 0,
     finite float32 local dofs, K1's float32 launches on the displaced
@@ -171,7 +171,32 @@ mg_f32, cg_f64, cg_segment; K1 in float32 on their path):
     PROTON_BENCH_PRECISION=mixed (K1 in float32 on every cell twice),
     then the bench CLI at 128^2 for each precision: exit 0 and the JAX
     bench's label; (g) the JAX package's CPU numbers at 16^2
-    (PRECISION_GATES).
+    (PRECISION_GATES);
+
+the multigrid options the JAX package keeps off by default
+(solvers/multigrid.py: cheb_ops, the smoothed and the cut-aware
+transfers, the interface-band deflation; K1 on the lean path's shapes):
+
+27. [mg_options] k=1, lean + MG, tol 1e-11, one solve per option of
+    MG_OPTIONS: mg_transfer="smoothed" and mg_deflate=4 at 1024^2,
+    cheb_ops="uniform" at 256^2, mg_transfer="cut" and cheb_ops="mixed"
+    at 128^2 (their counts grow too fast for 1024^2: 4,255 and 13,657
+    iterations there for cheb_ops, 1,405 at 512^2 for "cut"):
+    iterations, ms per iteration, setup seconds (drec_setup_s,
+    deflate_setup_s), peak GB, K1's launches and cell counts; each held
+    to the default solve of the same system (phase 7's at 1024^2, phase
+    22's at 256^2 and 128^2, reused): CG exit 0, local dofs within 2e-8
+    of max|local|, H1 rtol 2e-3; mg_deflate=4 at 256^2 k=2 and "cut" at
+    64^2 k=2 (tol 1e-12; 1,864 iterations at 256^2) against phase 9's
+    solves the same way; the bench CLI at PROTON_BENCH_N=128, k=1, twice
+    (MG_OPTIONS_CLI: each value of MGTRANSFER, DEFLATE and CHEBOPS in
+    one run; beside the k=2 runs: exit 0, the line's "options" name the
+    keywords); the family app with PROTON_TPU_X64=0 at
+    -N 256 -k 1 -B 8 (all converged, no overflow, 8 float32 K1
+    launches on all 65,536 cells, each geometry's H1 below
+    FAMILY_F32_H1_LIMIT, printed beside phase 21's float64 run of the
+    same radii), and K1 in float32 against its plain version on its first
+    geometry's displaced mesh.
 
 Every phase prints its seconds (`[phase]`). To fit the 1,000 s budget,
 depth was cut: the fictdom_family app runs at -B 8 (was 64) and its
@@ -188,6 +213,18 @@ phase 21's 1024^2 family has one geometry (was two, FAMILY_RADII);
 phase 26 runs its in-process mixed bench at tol BENCH_MIXED_TOL and its
 three bench CLI runs at once, beside (d)-(f) (after every kernel timing
 and profile); phase 25's CLI run goes beside its in-process run_bench.
+For phase 27 (the script read 1,282-1,400+ s with it and the earlier
+depth; the host of an H100 paces the V-cycle at 52-78 ms an iteration,
+from run to run):
+phase 26 (b) runs mg_f32 k=2 at 256^2 (was 1024^2: 1,998 iterations,
+~104 s) and (c) its k=1 solve at 512^2 against phase 8's (was 1024^2,
+against phase 7's; the profile stays at 1024^2); phase 23 no longer
+solves Galerkin k=2 at 1024^2 (802 iterations, ~100 s with its 11.6 s
+setup) and profiles at 256^2 k=2; phase 18's interface runs at 256^2
+and 512^2 (its order over that doubling; 1024^2 read 532 iterations,
+34 s) and profiles at 512^2; phase 22's damped smoothers run at 64^2
+(was 128^2: 413 / 449 iterations, 24 s); phase 21's pair of geometries
+against the structured solve runs at 128^2 (was 256^2).
 
 Any failed check raises, so the script exits non-zero and prints no
 result. Without a CUDA device it exits non-zero before any phase. The
@@ -197,13 +234,17 @@ lean path's shape with the launches of the 1024^2 lean + multigrid solve,
 at k=1 and at k=2, at the 512^2 classified mesh with the launches of the
 full + multigrid solve, at one family geometry's displaced 1024^2 mesh
 with the launches of the 1024^2 family, and at the lean path's shape with
-the launches of the 1024^2 Galerkin solves, at k=1 and at k=2, and at
+the launches of the 1024^2 k=1 and the 256^2 k=2 Galerkin solves (the
+k=2 row at 256^2's displaced cells), and at
 every cell of the classified 1024^2 mesh with the launches of phase 25's
 bench run; in float32, at the displaced 1024^2 cells with the float32
 launches of phase 26's mixed k=1 and k=2 solves and of its float32 k=1
 solve, and at
-every cell of the mixed mesh at k=2 with those of its mixed bench run), the
-last line {"ok": true, "device": {...}}.
+every cell of the mixed mesh at k=2 with those of its mixed bench run;
+phase 27's: at the lean path's shape with the launches of its k=1 option
+solves and of its k=2 ones, and in float32 at the family's displaced 256^2
+mesh with the float32 family app's), the last line {"ok": true,
+"device": {...}}.
 """
 
 import json
@@ -1375,8 +1416,8 @@ def profile_interface(N: int, k: int, iterations: int) -> None:
 def interface_phase() -> None:
     """Phase 18: the interface problem (condensed, uniform MG + cut-band
     Schwarz, tol 1e-9): the JAX gates, condensed against the full system,
-    a kappa contrast on the block-Jacobi branch, then 256^2 ... 1024^2 k=1
-    with the H1 order from 512^2, and the host traffic of its CG loop."""
+    a kappa contrast on the block-Jacobi branch, then 256^2 and 512^2 k=1
+    with the H1 order from 256^2, and the host traffic of its CG loop."""
     from proton_tpu_torch.cut import interface_problem as ip
 
     for (n, k), (ref_its, ref_h1) in INTERFACE_GATES.items():
@@ -1401,15 +1442,14 @@ def interface_phase() -> None:
     line("interface_contrast", N=64, kappa_1=1.0, kappa_2=3.0,
          h1=contrast.h1_error, iterations=contrast.iterations)
     h1 = {}
-    for n in (256, 512, 1024):
+    for n in (256, 512):
         h1[n] = interface_solve(n, 1).h1_error
-    order = math.log2(h1[512] / h1[1024])
+    order = math.log2(h1[256] / h1[512])
     line("interface_order", h1_256=h1[256], h1_512=h1[512],
-         h1_1024=h1[1024], order_256_512=math.log2(h1[256] / h1[512]),
-         order_512_1024=order)
+         order_256_512=order)
     check(1.8 <= order <= 2.2, f"interface H1 order {order} outside "
           "[1.8, 2.2]")
-    profile_interface(1024, 1, iterations=10)
+    profile_interface(512, 1, iterations=10)
 
 
 def agglomerate_phase() -> None:
@@ -1600,17 +1640,18 @@ def family_app(args, device: str = "cuda") -> dict:
 
 
 def family_phase(bw: float, flop_peak: float, N: int = 1024,
-                 N_app: int = 256, device: str = "cuda"):
+                 N_app: int = 256, N_pair: int = 128, device: str = "cuda"):
     """Phase 21: K1 against its plain version on the displaced N^2 mesh of
     one family geometry; the N^2 k=1 family (FAMILY_RADII) at the app's tol
     1e-6 with K1's launches; the app at its documented widths with 8 of
     its 64 geometries (-N 256 -k 1 -B 8); the ellipse and flower
     families at 256^2 B=2;
-    and two geometries at 256^2, tol 1e-10, each equal to the structured
+    and two geometries at N_pair^2, tol 1e-10, each equal to the structured
     solve of the same circle (H1 rtol 1e-8). The structured solve is
     fitted="full" with precond="jacobi", the same discrete system (K1 on
     every cell), so only rounding separates the two. Returns K1's record
-    row at the family's shape and the family's launches."""
+    row at the family's shape, the family's launches and the app's line
+    at -B 8 (phase 27 prints the float32 app beside it)."""
     from proton_tpu_torch.core.geometry import cell_geometry
     from proton_tpu_torch.core.mesh import make_poly_mesh
     from proton_tpu_torch.cut import fictdom_structured as fs
@@ -1630,34 +1671,34 @@ def family_phase(bw: float, flop_peak: float, N: int = 1024,
 
     _, launches = family_solve(N, FAMILY_RADII, FAMILY_CENTERS, 1e-6,
                                device)
-    family_app(["-N", str(N_app), "-k", "1", "-B", "8"], device)
+    app = family_app(["-N", str(N_app), "-k", "1", "-B", "8"], device)
     for shape in ("ellipse", "flower"):
         family_app(["-N", str(N_app), "-k", "1", "-B", "2", "--shape",
                     shape], device)
 
     radii, centers = (0.3, 0.41), ((0.5, 0.5), (0.48, 0.52))
-    fam, _ = family_solve(N_app, radii, centers, 1e-10, device)
+    fam, _ = family_solve(N_pair, radii, centers, 1e-10, device)
     params = cg.CGParams(convergence_threshold=1e-10,
                          divergence_threshold=1e8, max_iter=50000,
                          apply_preconditioner=True)
     for b, (radius, center) in enumerate(zip(radii, centers)):
         s = fs.solve_fictdom_structured(
-            N_app, 1, fs.default_problem(radius, center), fitted="full",
+            N_pair, 1, fs.default_problem(radius, center), fitted="full",
             precond="jacobi", cg_params=params, device=device)
         rel = abs(float(fam.h1_error[b]) - s.h1_error) / s.h1_error
-        line("family_vs_structured", N=N_app, radius=radius,
+        line("family_vs_structured", N=N_pair, radius=radius,
              center=f"{center[0]},{center[1]}",
              h1_family=float(fam.h1_error[b]), h1_structured=s.h1_error,
              rel=rel, iterations_family=int(fam.iterations[b]),
              iterations_structured=s.iterations)
         check(s.exit_reason == cg.CONVERGED and rel < 1e-8,
-              f"family {N_app}^2 geometry {b}: H1 {rel} apart from the "
+              f"family {N_pair}^2 geometry {b}: H1 {rel} apart from the "
               "structured solve")
-    return row, launches
+    return row, launches, app
 
 
-def options_phase(N: int = 256, N_smoother: int = 128,
-                  N_classify: int = 1024, device: str = "cuda") -> None:
+def options_phase(N: int = 256, N_smoother: int = 64,
+                  N_classify: int = 1024, device: str = "cuda") -> dict:
     """Phase 22: the options of solve_fictdom_structured beyond the
     default path, k=1, tol 1e-11: fitted="uniform" equal to fitted="lean" at N^2
     (the same iterations, local dofs to 1e-12); the damped block-Jacobi
@@ -1665,7 +1706,8 @@ def options_phase(N: int = 256, N_smoother: int = 128,
     Chebyshev solve; their counts grow too fast to run them at 256^2 here:
     12,955 and 21,817 iterations there against Chebyshev's 105); and
     classify_level(method="full") equal to the band one at N_classify^2
-    (codes, moved points, cut cells)."""
+    (codes, moved points, cut cells). Returns {n: the lean n^2 solve} at N
+    and 128 (phase 27 holds options against them)."""
     from proton_tpu_torch.cut import fictdom_structured as fs
 
     mg = dict(fitted="lean", precond="mg", device=device)
@@ -1706,6 +1748,7 @@ def options_phase(N: int = 256, N_smoother: int = 128,
     check(torch.equal(mb.points, mf.points) and np.array_equal(ib, if_),
           f"{N_classify}^2: classify_level band and full points or cut "
           "cells differ")
+    return {N: lean, 128: solve(128, 1, 1e-11, **mg)}
 
 
 # Phase 23: the Galerkin coarse hierarchy. The JAX package on the CPU in
@@ -1808,19 +1851,19 @@ GALERKIN_K1_REL = 3e-4
 def galerkin_phase(red, displaced_cells):
     """Phase 23 [galerkin], tol 1e-11, float64: the JAX package's gates at
     16^2, 32^2 k=1 (also with mg_gamma=2) and 16^2 k=2 (iterations within
-    2, H1 rtol 1e-6 at k=1, 1e-4 at k=2); k=2 at 256^2 and 1024^2
-    with mg_galerkin=True, each held against the rediscretized solve of
-    the same N, k and tol in ``red`` (phases 7 and 9;
-    against_rediscretized), with K1's launches and cell counts
+    2, H1 rtol 1e-6 at k=1, 1e-4 at k=2); k=2 at 256^2 with
+    mg_galerkin=True, held against the rediscretized solve of the same N,
+    k and tol in ``red`` (phase 9; against_rediscretized), with K1's
+    launches and cell counts
     (mg_gamma=2 runs in the 32^2 gate only: at 256^2 and 512^2 k=2 it
     takes 307 and 957 iterations at 145-180 ms, 45 and 170 s, more than
     the budget leaves; tools/galerkin_history.py --gamma 2 measures it);
     torch.profiler over 20 Galerkin-MG
-    iterations at 1024^2 k=2 on a hierarchy built anew from the
+    iterations at 256^2 k=2 on a hierarchy built anew from the
     profiled levels; the 1024^2 k=1 solve capped at GALERKIN_K1_CAP
     iterations (it stalls), its residual below GALERKIN_K1_REL, with K1's
     launches. Returns K1's launches in the 1024^2 k=1
-    and k=2 Galerkin solves."""
+    and the 256^2 k=2 Galerkin solves."""
     for (n, k, gamma), (iters, h1) in GALERKIN_GATES.items():
         r = solve(n, k, 1e-11, fitted="lean", precond="mg", mg_galerkin=True,
                   mg_gamma=gamma)
@@ -1832,20 +1875,13 @@ def galerkin_phase(red, displaced_cells):
               f"{n}^2 k={k} gamma={gamma}: Galerkin H1")
     galerkin_levels(256, 2)
     torch.cuda.empty_cache()
-    r, launches, cells = galerkin_solve("galerkin_solve_256_k2", 256, 2)
-    check(launches > 0 and 1 in cells,
+    r, launches_k2, cells = galerkin_solve("galerkin_solve_256_k2", 256, 2)
+    check(launches_k2 > 0 and 1 in cells,
           f"256^2 k=2: the Galerkin solve launched K1 at {cells}")
     against_rediscretized(256, 2, r, red[(256, 2)])
     del r
     torch.cuda.empty_cache()
-
-    r, launches_k2, cells = galerkin_solve("galerkin_solve_1024_k2", 1024, 2)
-    check_lean_launches("the Galerkin 1024^2 k=2 solve", cells,
-                        displaced_cells)
-    against_rediscretized(1024, 2, r, red[(1024, 2)])
-    del r
-    torch.cuda.empty_cache()
-    profile_mg(1024, 2, iterations=20, galerkin=True, tag="profile_galerkin")
+    profile_mg(256, 2, iterations=20, galerkin=True, tag="profile_galerkin")
     torch.cuda.empty_cache()
 
     r, launches_k1, cells = galerkin_solve(
@@ -2205,27 +2241,29 @@ def _mg_f32_against(r, base, N: int, k: int):
     return diff, umax
 
 
-def precision_accurate(ref, profile_f64, N: int = 1024) -> None:
-    """Phase 26 (b), (c): mg_f32=True at N^2, tol 1e-11. k=2 against phase
-    9's float64 solution (local dofs within 2e-8 of max|local|, H1 rtol
-    1e-4); k=1 against phase 7's to phase 7's gates against the lean
-    block-Jacobi solve (one discrete system: local dofs within 2e-8, H1
-    rtol 2e-3), then torch.profiler over 10 of its iterations beside
-    phase 10's float64 figures (``profile_f64``)."""
+def precision_accurate(ref, profile_f64, N: int = 1024, N_k1: int = 512,
+                       N_k2: int = 256) -> None:
+    """Phase 26 (b), (c): mg_f32=True, tol 1e-11. k=2 at N_k2^2 against
+    phase 9's float64 solution (local dofs within 2e-8 of max|local|, H1
+    rtol 1e-4); k=1 at N_k1^2 against phase 8's lean solve to phase 7's
+    gates against the lean block-Jacobi solve (one discrete system: local
+    dofs within 2e-8, H1 rtol 2e-3), then torch.profiler over 10
+    iterations at N^2 k=1 beside phase 10's float64 figures
+    (``profile_f64``)."""
     lean = dict(fitted="lean", precond="mg")
-    r = solve(N, 2, 1e-11, mg_f32=True, **lean)
-    diff, umax = _mg_f32_against(r, ref[(N, 2)], N, 2)
-    check(diff <= 2e-8 * umax, f"mg_f32 {N}^2 k=2: local dofs {diff} from "
-          "phase 9's")
-    check(math.isclose(r.h1_error, ref[(N, 2)].h1_error, rel_tol=1e-4),
-          f"mg_f32 {N}^2 k=2: H1 {r.h1_error}")
+    r = solve(N_k2, 2, 1e-11, mg_f32=True, **lean)
+    diff, umax = _mg_f32_against(r, ref[(N_k2, 2)], N_k2, 2)
+    check(diff <= 2e-8 * umax, f"mg_f32 {N_k2}^2 k=2: local dofs {diff} "
+          "from phase 9's")
+    check(math.isclose(r.h1_error, ref[(N_k2, 2)].h1_error, rel_tol=1e-4),
+          f"mg_f32 {N_k2}^2 k=2: H1 {r.h1_error}")
     del r
     torch.cuda.empty_cache()
-    r = solve(N, 1, 1e-11, mg_f32=True, **lean)
-    diff, _ = _mg_f32_against(r, ref[(N, 1)], N, 1)
-    check(diff < 2e-8, f"mg_f32 {N}^2 k=1: local dofs differ by {diff}")
-    check(math.isclose(r.h1_error, ref[(N, 1)].h1_error, rel_tol=2e-3),
-          f"mg_f32 {N}^2 k=1: H1 {r.h1_error}")
+    r = solve(N_k1, 1, 1e-11, mg_f32=True, **lean)
+    diff, _ = _mg_f32_against(r, ref[(N_k1, 1)], N_k1, 1)
+    check(diff < 2e-8, f"mg_f32 {N_k1}^2 k=1: local dofs differ by {diff}")
+    check(math.isclose(r.h1_error, ref[(N_k1, 1)].h1_error, rel_tol=2e-3),
+          f"mg_f32 {N_k1}^2 k=1: H1 {r.h1_error}")
     del r
     torch.cuda.empty_cache()
     prof = profile_mg(N, 1, iterations=10, tag="profile_mg_f32", mg_f32=True)
@@ -2444,6 +2482,231 @@ def precision_phase(ref, profile_f64, bw: float, f32_peak: float,
             (len(bench_k2), rows[("full", N, 2)])}
 
 
+# Phase 27: the multigrid options the JAX package keeps off by default,
+# as solve_fictdom_structured keywords: name -> (options, N at k=1). The
+# three whose counts grow fastest run at 128^2 or 256^2 (H100 80GB HBM3,
+# 700 W, tol 1e-11; CPU counts of scripts/mg_options_jax_vs_port.py,
+# JAX's alike): cheb_ops="mixed" took 13,657 iterations at 1024^2 (647
+# s; 830 at 256^2, 261 / 418 at 64^2 / 128^2), "uniform" 4,255 (140 s;
+# 865 at 512^2, 187 at 256^2), the cut-aware transfers 1,405 at 512^2
+# (72 s; 535 at 256^2, 79 / 206), against the default's 389 at 1024^2,
+# 197 at 512^2, 105 at 256^2.
+MG_OPTIONS = {"cheb_mixed": (dict(cheb_ops="mixed"), 128),
+              "cheb_uniform": (dict(cheb_ops="uniform"), 256),
+              "smoothed": (dict(mg_transfer="smoothed"), 1024),
+              "cut": (dict(mg_transfer="cut"), 128),
+              "deflate": (dict(mg_deflate=4), 1024)}
+# the options run at k=2 (the d = 22 shapes of drec and of the band
+# features): name -> (N, tol), held to phase 9's solve at that N and tol.
+# The cut-aware transfers took 1,864 iterations (96 s) at 256^2 k=2
+# against the default's 272, so they run at 64^2 (phase 9's tol 1e-12
+# gate solve).
+MG_OPTIONS_K2 = {"cut": (64, 1e-12), "deflate": (256, 1e-11)}
+# Phase 27: each geometry's H1 error of the float32 family app at
+# -N 256 -k 1 -B 8 (PROTON_TPU_X64=0) must lie below twice its reading
+# (H100 80GB HBM3, 700 W; float64: 4.6e-4-9.6e-4, phase 21). It is float32
+# noise, a quarter of the solution's H1 seminorm on each geometry, and
+# the JAX app's is alike (PROTON_TPU_X64=0, CPU: 0.175 ... 0.353). Each
+# limit lies below the error of the zero solution, which the phase
+# computes (0.70 ... 1.64).
+FAMILY_F32_H1 = (0.19747701, 0.22764604, 0.25957298, 0.29217532,
+                 0.32356867, 0.35369989, 0.38259912, 0.40999115)
+FAMILY_F32_H1_LIMIT = tuple(2 * h for h in FAMILY_F32_H1)
+
+
+def zero_solution_h1(radii, centers, n: int = 2000):
+    """The H1 error of u_h = 0 on each disk, |u|_H1 of the manufactured
+    u = sin(pi x) sin(pi y): the midpoint rule on an n x n grid."""
+    x = (np.arange(n) + 0.5) / n
+    X, Y = np.meshgrid(x, x)
+    g = np.pi ** 2 * (np.cos(np.pi * X) ** 2 * np.sin(np.pi * Y) ** 2 +
+                      np.sin(np.pi * X) ** 2 * np.cos(np.pi * Y) ** 2)
+    return [float(np.sqrt(np.sum(g * ((X - cx) ** 2 + (Y - cy) ** 2 < r * r))
+                          / n ** 2)) for r, (cx, cy) in zip(radii, centers)]
+
+
+def _held_to(tag: str, r, ref, N: int, k: int) -> None:
+    """An option's solve against the default solve ``ref`` of the same
+    N, k and tol (phases 7, 8, 9 and 22; one discrete system, two
+    preconditioners): CG exit 0, local dofs within 2e-8 of max|local|, H1
+    rtol 2e-3."""
+    diff = float((r.local - ref.local).abs().max())
+    umax = float(ref.local.abs().max())
+    line("mg_options_vs_default", option=tag, N=N, k=k,
+         iterations=r.iterations, iterations_default=ref.iterations,
+         ms_per_iteration=1e3 * r.timings["cg_s"] / max(r.iterations, 1),
+         ms_per_iteration_default=1e3 * ref.timings["cg_s"] /
+         max(ref.iterations, 1),
+         h1=r.h1_error, h1_default=ref.h1_error, max_abs_local_diff=diff,
+         max_abs_local=umax)
+    check(r.exit_reason == 0, f"{tag} {N}^2 k={k}: CG exit {r.exit_reason}")
+    check(diff <= 2e-8 * umax, f"{tag} {N}^2 k={k}: local dofs {diff} from "
+          "the default solve's")
+    check(math.isclose(r.h1_error, ref.h1_error, rel_tol=2e-3),
+          f"{tag} {N}^2 k={k}: H1 {r.h1_error}, default {ref.h1_error}")
+
+
+# Phase 27's bench CLI runs: each knob value of MGTRANSFER, DEFLATE and
+# CHEBOPS in one of them (they combine).
+MG_OPTIONS_CLI = ({"MGTRANSFER": "cut", "DEFLATE": "4", "CHEBOPS": "mixed"},
+                  {"MGTRANSFER": "smoothed", "CHEBOPS": "uniform"})
+
+
+def mg_options_cli_start(N_cli: int = 128) -> dict:
+    """Phase 27: `python -m proton_tpu_torch.bench` at PROTON_BENCH_N=N_cli,
+    k=1, once with each knob set of MG_OPTIONS_CLI, as subprocesses at
+    once. Returns {index: process}."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("PROTON_BENCH_")}
+    runs = {}
+    try:
+        for i, knobs in enumerate(MG_OPTIONS_CLI):
+            runs[i] = subprocess.Popen(
+                [sys.executable, "-m", "proton_tpu_torch.bench"], cwd=root,
+                env=dict(env, PROTON_BENCH_N=str(N_cli), PROTON_BENCH_K="1",
+                         **{f"PROTON_BENCH_{k}": v for k, v in knobs.items()}),
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    except BaseException:
+        for proc in runs.values():
+            proc.kill()
+        raise
+    return runs
+
+
+# the library keyword each bench knob sets, and its type
+MG_KNOBS = {"MGTRANSFER": ("mg_transfer", str), "DEFLATE": ("mg_deflate", int),
+            "CHEBOPS": ("cheb_ops", str)}
+
+
+def mg_options_cli_finish(runs: dict, t0: float, N_cli: int = 128) -> None:
+    """Each run of mg_options_cli_start exits 0 with one converged line
+    whose "options" name each knob's keyword and value. Every process is
+    killed on the way out."""
+    try:
+        for i, proc in runs.items():
+            knobs = MG_OPTIONS_CLI[i]
+            out, err = proc.communicate(timeout=600)
+            rows = [json.loads(ln) for ln in out.splitlines()
+                    if ln.startswith("{")]
+            for row in rows:
+                print("[mg_options_bench] " + json.dumps(row), flush=True)
+            line("mg_options_bench_cli", N=N_cli,
+                 knobs=",".join(f"{k}={v}" for k, v in knobs.items()),
+                 exit=proc.returncode, lines=len(rows),
+                 iterations=rows[-1]["cg_iters"] if rows else None,
+                 seconds=time.perf_counter() - t0)
+            check(proc.returncode == 0 and len(rows) == 1 and
+                  rows[0]["cg_exit"] == 0 and
+                  all(rows[0]["options"].get(MG_KNOBS[k][0]) ==
+                      MG_KNOBS[k][1](v) for k, v in knobs.items()),
+                  f"the bench CLI with {knobs}: exit {proc.returncode}, "
+                  f"{len(rows)} lines: {err[-2000:]}")
+    finally:
+        for proc in runs.values():
+            proc.kill()
+
+
+def mg_options_family(app_f64: dict, bw: float, f32_peak: float,
+                      N: int = 256, B: int = 8):
+    """Phase 27: the family app at its documented widths with
+    PROTON_TPU_X64=0 (float32), K1's launches read around it: all
+    converged, no overflow, 8 float32 launches on all N^2 cells,
+    each geometry's H1 below FAMILY_F32_H1_LIMIT (printed beside phase
+    21's float64 run of the same radii, ``app_f64``, and the zero
+    solution's error, above each limit). Then K1 in float32
+    against its plain version on the first geometry's displaced mesh.
+    Returns (launches, that record row)."""
+    import os
+
+    from proton_tpu_torch.apps.fictdom_family import X64_OFF
+    from proton_tpu_torch.core.geometry import cell_geometry
+    from proton_tpu_torch.core.mesh import make_poly_mesh
+    from proton_tpu_torch.cut import fictdom_structured as fs
+    from proton_tpu_torch.cut.classify import _preprocess_core
+    from proton_tpu_torch.methods import fused_assembly as fa
+
+    check("PROTON_TPU_X64" not in os.environ, "phase 27 sets PROTON_TPU_X64 "
+          "itself; it is set")
+    os.environ["PROTON_TPU_X64"] = X64_OFF[0]
+    try:
+        fa.reset_launch_counts()
+        out = family_app(["-N", str(N), "-k", "1", "-B", str(B)])
+        cells = f32_launches(f"the float32 family app at {N}^2", [N * N] * B)
+    finally:
+        del os.environ["PROTON_TPU_X64"]
+    # the app's geometries (apps/fictdom_family.py)
+    radii = np.linspace(0.25, 0.42, B)
+    angles = np.linspace(0.0, 2.0 * np.pi, B, endpoint=False)
+    centers = 0.5 + 0.02 * np.stack([np.cos(angles), np.sin(angles)], axis=1)
+    zero = zero_solution_h1(radii, centers)
+    h1, h1_64 = out["h1_errors"], app_f64["h1_errors"]
+    line("mg_options_family_f32", N=N, B=B,
+         h1=",".join(map(repr, h1)), h1_f64=",".join(map(repr, h1_64)),
+         h1_limit=",".join(f"{h:.4g}" for h in FAMILY_F32_H1_LIMIT),
+         h1_zero_solution=",".join(f"{h:.4g}" for h in zero),
+         iterations=",".join(map(str, out["iterations"])),
+         iterations_f64=",".join(map(str, app_f64["iterations"])),
+         total_s=out["total_s"], total_s_f64=app_f64["total_s"])
+    check(len(h1) == len(FAMILY_F32_H1_LIMIT) and
+          all(h < lim < z for h, lim, z in zip(h1, FAMILY_F32_H1_LIMIT,
+                                                zero)),
+          f"float32 family H1 {h1}, limits {FAMILY_F32_H1_LIMIT}, zero "
+          f"solution {zero}")
+    radius, center = radii[0], tuple(centers[0])   # the first geometry
+    mesh = make_poly_mesh(Nx=N, Ny=N, device="cuda", dtype=torch.float32)
+    pts, _, _, _ = _preprocess_core(
+        mesh, fs.default_problem(radius, center).ls, 4)
+    mesh2 = mesh.with_points(pts)
+    row = kernel_row(fa.pack_inputs(mesh2, cell_geometry(mesh2)), 2, 1, 1e-4,
+                     bw, f32_peak)
+    return len(cells), row
+
+
+def mg_options_phase(refs, app_f64: dict, bw: float, f32_peak: float):
+    """Phase 27 [mg_options]: the multigrid options of
+    solve_fictdom_structured on the card, k=1, lean + MG, tol 1e-11, one
+    solve for each option of MG_OPTIONS at its N (iterations, ms per
+    iteration, setup seconds with drec_setup_s and deflate_setup_s, peak
+    GB, K1's launches and cell counts), each held to the default solve of
+    the same system (``refs``: {(N, k): result} of phases 7, 9 and 22;
+    _held_to); MG_OPTIONS_K2 at k=2 the same way; the bench CLI with
+    each knob value (mg_options_cli_start, beside the k=2 runs and the
+    family); the float32 family app (mg_options_family). Returns (K1's
+    launches in the k=1 option solves, in the k=2 ones, in the family
+    app, the family's record row)."""
+    launches = {1: 0, 2: 0}
+    for name, (options, N) in MG_OPTIONS.items():
+        r, n, _ = counted_solve("mg_options_launches", N, 1, 1e-11,
+                                fitted="lean", precond="mg", **options)
+        launches[1] += n
+        _held_to(name, r, refs[(N, 1)], N, 1)
+        del r
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    runs = mg_options_cli_start()
+    try:
+        for name, (N, tol) in MG_OPTIONS_K2.items():
+            r, n, _ = counted_solve("mg_options_launches", N, 2, tol,
+                                    fitted="lean", precond="mg",
+                                    **MG_OPTIONS[name][0])
+            launches[2] += n
+            _held_to(name, r, refs[(N, 2)], N, 2)
+            del r
+            torch.cuda.empty_cache()
+        family = mg_options_family(app_f64, bw, f32_peak)
+    except BaseException:
+        for proc in runs.values():
+            proc.kill()
+        raise
+    mg_options_cli_finish(runs, t0)
+    check(launches[1] > 0 and launches[2] > 0, "the option solves did not "
+          "launch K1")
+    return launches[1], launches[2], *family
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2615,6 +2878,8 @@ def main() -> int:
           "512^2: H1 of full + mg differs from lean + mg")
     check(math.isclose(lean512.h1_error, r512.h1_error, rel_tol=1e-4),
           "512^2: H1 of lean + mg differs from full + block-Jacobi")
+    # phase 26 holds the float32 V-cycle at 512^2 k=1 against lean512
+    red[(512, 1)] = lean512
     del full512, lean512
     for n, slack in ((32, 1), (64, 2)):
         r = solve(n, 1, 1e-10, **mg)
@@ -2633,7 +2898,7 @@ def main() -> int:
     # rate there (see MG_GATES_K2): it must not rise, and its orders are
     # printed.
     for n, (ref_iterations, ref_h1) in MG_GATES_K2.items():
-        r = solve(n, 2, 1e-12, **mg)
+        r = red[(n, 2)] = solve(n, 2, 1e-12, **mg)  # phase 27 reuses them
         line("mg_gate_k2", N=n, iterations=r.iterations,
              ref_iterations=ref_iterations, h1=r.h1_error, ref_h1=ref_h1)
         check(abs(r.iterations - ref_iterations) <= 2,
@@ -2697,16 +2962,20 @@ def main() -> int:
 
     # 21-22. the geometry families, and the structured-solve options
     t_family = time.perf_counter()
-    family_row, launches_family = family_phase(bw, f64_peak)
+    family_row, launches_family, app_f64 = family_phase(bw, f64_peak)
     phase_done("21 family")
-    options_phase()
+    red.update({(n, 1): r for n, r in options_phase().items()})
     phase_done("22 options")
     line("family_total", seconds=round(time.perf_counter() - t_family, 3))
 
     # 23. the Galerkin coarse hierarchy
     launches_gal, launches_gal_k2 = galerkin_phase(red, displaced_cells)
     # phase 26 holds the precision modes against the float64 solutions
-    ref_precision = {key: red[key] for key in ((1024, 1), (1024, 2))}
+    ref_precision = {key: red[key] for key in ((1024, 1), (512, 1),
+                                               (1024, 2), (256, 2))}
+    # phase 27 holds the multigrid options against these
+    ref_options = {key: red[key] for key in ((1024, 1), (256, 1), (128, 1),
+                                             (64, 2), (256, 2))}
     del red
     torch.cuda.empty_cache()
     phase_done("23 galerkin")
@@ -2723,6 +2992,12 @@ def main() -> int:
     f32_entries = precision_phase(ref_precision, profile_f64, bw, f32_peak)
     del ref_precision
     phase_done("26 precision")
+
+    # 27. the multigrid options
+    (launches_options, launches_options_k2, launches_family_f32,
+     family_f32_row) = mg_options_phase(ref_options, app_f64, bw, f32_peak)
+    del ref_options
+    phase_done("27 mg_options")
 
     line("total", seconds=round(time.perf_counter() - t_start, 3))
     print(smi, flush=True)
@@ -2746,9 +3021,17 @@ def main() -> int:
              **record, **shape_rows[("displaced", 1024, 1)]),
         dict(name="fused_local_operator_k2_galerkin",
              launches=launches_gal_k2, **record,
-             **shape_rows[("displaced", 1024, 2)]),
+             **shape_rows[("displaced", 256, 2)]),
         dict(name="fused_local_operator_bench", launches=launches_bench,
              **record, **shape_rows[("full", 1024, 1)]),
+        dict(name="fused_local_operator_mg_options",
+             launches=launches_options, **record,
+             **shape_rows[("displaced", 1024, 1)]),
+        dict(name="fused_local_operator_k2_mg_options",
+             launches=launches_options_k2, **record,
+             **shape_rows[("displaced", 256, 2)]),
+        dict(name="fused_local_operator_f32_family",
+             launches=launches_family_f32, **record, **family_f32_row),
         *(dict(name=name, launches=n, **record, **row)
           for name, (n, row) in f32_entries.items())]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

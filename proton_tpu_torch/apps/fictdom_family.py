@@ -13,19 +13,29 @@ Geometries: B shapes with radii linearly spaced in [r0, r1] and centers
 on a small deterministic jitter circle around (0.5, 0.5), so that every
 geometry cuts the mesh differently (ellipses: b = 0.8 r; flowers: 5
 petals of amplitude 0.1 r). Prints one JSON line with the timings and
-the per-geometry H1 errors and iterations. Runs float64 on the device
-given by --device (default: cuda; without CUDA and without --device the
-app raises).
+the per-geometry H1 errors and iterations. Runs on the device given by
+--device (default: cuda; without CUDA and without --device the app
+raises).
+
+PROTON_TPU_X64 (read when the app runs, with the JAX package's meaning):
+"0", "false" or "False" runs the family in float32 (kernel K1's float32
+build on every cell of each geometry); anything else, or unset, in
+float64. The JAX app sets it to "0" when it is unset, against a TPU
+memory limit; the port's default stays float64.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 
 import numpy as np
+
+# PROTON_TPU_X64 values that select float32 (proton_tpu/config.py)
+X64_OFF = ("0", "false", "False")
 
 
 def main(argv=None):
@@ -48,11 +58,15 @@ def main(argv=None):
     ap.add_argument("--device", help="torch device (default: cuda)")
     args = ap.parse_args(argv)
 
+    import torch
+
     from ..config import resolve_device, synchronize
     from ..cut import batched
     from ..solvers import cg
 
     device = resolve_device(args.device)
+    dtype = torch.float32 if os.environ.get("PROTON_TPU_X64") in X64_OFF \
+        else torch.float64
     B = args.B
     radii = np.linspace(args.r0, args.r1, B)
     rng = np.linspace(0.0, 2.0 * np.pi, B, endpoint=False)
@@ -62,7 +76,7 @@ def main(argv=None):
                       divergence_threshold=1e8, max_iter=50000,
                       apply_preconditioner=True)
     kw = dict(capacity=args.capacity, geom_chunk=args.geom_chunk,
-              cg_params=cgp, device=device)
+              cg_params=cgp, device=device, dtype=dtype)
 
     t0 = time.perf_counter()
     if args.shape == "circle":

@@ -46,6 +46,14 @@ Environment knobs (the JAX bench's names, defaults and meanings):
   PROTON_BENCH_COARSEST, NSMOOTH, RING, CHEB, PCOLORS: mg_coarsest (8),
                         n_smooth (1), patch_ring (1), cheb_degree (4),
                         patch_colors (1)
+  PROTON_BENCH_MGTRANSFER uniform | smoothed | cut (mg_transfer: the
+                        operator-smoothed or the cut-aware transfers; the
+                        coarse levels are lean whatever UNIFORM, so cut
+                        runs with UNIFORM=0 too, as in the JAX bench)
+  PROTON_BENCH_DEFLATE  K > 0: the interface-band deflation of 2K+1 modes
+                        (mg_deflate)
+  PROTON_BENCH_CHEBOPS  exact | mixed | uniform (cheb_ops: the Chebyshev
+                        smoother's operator pair; not with UNIFORM=0)
   PROTON_BENCH_MAXIT    CG iteration cap (50000)
   PROTON_BENCH_H1       0: no H1 error (h1_error null)
   PROTON_BENCH_NORTHSTAR 0: the stock form prints the k=1 line alone
@@ -54,8 +62,10 @@ The line's "options" are the solve_fictdom_structured keywords of the
 library solve the run reproduces. The knobs of _NOT_PORTED raise
 NotImplementedError when set to anything but the value there (ROADMAP.md,
 "Not ported"), as does GAMMA > 1 without GALERKIN=1: the chunked solve
-(a TPU fault workaround), the experiments the JAX package measured as
-no gain, and assembly without kernel K1.
+(a TPU fault workaround), W-cycles on the rediscretized hierarchy, and
+assembly without kernel K1. MGTRANSFER, DEFLATE and CHEBOPS raise
+ValueError where the JAX bench ignores them (PRECOND other than mg,
+CHEBOPS with UNIFORM=0).
 
 Phases, each ended by a device synchronize (the JAX bench's sync()
 fetch barrier works around a deferring remote runtime):
@@ -76,7 +86,9 @@ fetch barrier works around a deferring remote runtime):
 - system_s: the lean system that is solved (the timed assembly's system
   is returned to tests and not solved, as in the JAX bench's default;
   with UNIFORM=0 it is the one solved, and system_s is 0);
-- mg_setup_s: the rediscretized coarse levels and the V-cycle;
+- mg_setup_s: the rediscretized coarse levels and the V-cycle (with
+  MGTRANSFER=cut their reconstruction-map deviations, with DEFLATE the
+  deflation space);
 - solve_s: the face system (Dirichlet fold, rhs, operator), PCG and the
   cell recovery, after an untimed run of the same of two CG iterations
   (the first launch of each of their kernels lands there);
@@ -118,18 +130,13 @@ _K2_FIELDS = ("k", "dofs", "condensed_dofs", "cut_cells", "setup_s",
 
 # Knobs of the JAX bench that the port leaves out: name -> (the accepted
 # value, its type, what the knob selects): the chunked solve (the libtpu
-# while_loop fault), the experiments the JAX package measured as no gain,
-# and assembly without K1 (it always runs on the card; its plain version
-# is for CPU tensors). GAMMA > 1 without GALERKIN (W-cycles on the
-# rediscretized hierarchy, refuted) is refused in solve_options.
+# while_loop fault) and assembly without K1 (it always runs on the card;
+# its plain version is for CPU tensors). GAMMA > 1 without GALERKIN
+# (W-cycles on the rediscretized hierarchy, refuted) is refused in
+# solve_options.
 _NOT_PORTED = {
     "PROTON_BENCH_SEGSTYLE": ("loop", str, "the chunked solve"),
     "PROTON_BENCH_CHUNK": (5, int, "the chunked solve"),
-    "PROTON_BENCH_MGTRANSFER": ("uniform", str, "a transfer other than the "
-                                "uniform reconstruction one"),
-    "PROTON_BENCH_DEFLATE": (0, int, "interface-band deflation"),
-    "PROTON_BENCH_CHEBOPS": ("exact", str, "a Chebyshev operator pair "
-                             "other than exact"),
     "PROTON_BENCH_PALLAS": (1, int, "assembly without kernel K1"),
 }
 
@@ -206,6 +213,12 @@ def solve_options(k: int) -> dict:
                          "the lean system supports mg and block_jacobi "
                          "only, as in the JAX bench")
     mixed = precision == "mixed"
+    mg_options = dict(mg_transfer=_knob("MGTRANSFER", "uniform"),
+                      mg_deflate=_knob("DEFLATE", 0),
+                      cheb_ops=_knob("CHEBOPS", "exact"))
+    # the bench's coarse levels are lean whatever the fine level's form
+    fs._check_mg_options(**mg_options, precond=precond, smoother="chebyshev",
+                         fitted=fitted, coarse_fitted="lean")
     return dict(
         fitted=fitted, precond=precond, mixed=mixed,
         mg_f32=precision == "f64", cg_f64=_knob("CGF64", 0) == 1,
@@ -213,7 +226,7 @@ def solve_options(k: int) -> dict:
         mg_coarsest=_knob("COARSEST", 32 if galerkin else 8),
         n_smooth=_knob("NSMOOTH", 1), patch_ring=_knob("RING", 1),
         cheb_degree=_knob("CHEB", 4), patch_colors=_knob("PCOLORS", 1),
-        mg_galerkin=galerkin, mg_gamma=gamma,
+        mg_galerkin=galerkin, mg_gamma=gamma, **mg_options,
         dtype=torch.float32 if precision == "f32" else torch.float64)
 
 
@@ -332,7 +345,9 @@ def _run_bench(N: int, k: int, device=None):
             mg_galerkin=opts["mg_galerkin"], mg_gamma=opts["mg_gamma"],
             n_smooth=opts["n_smooth"], patch_ring=opts["patch_ring"],
             cheb_degree=opts["cheb_degree"],
-            patch_colors=opts["patch_colors"])
+            patch_colors=opts["patch_colors"],
+            mg_transfer=opts["mg_transfer"], mg_deflate=opts["mg_deflate"],
+            cheb_ops=opts["cheb_ops"])
     t_mg_setup = time.perf_counter() - t0
     _progress(f"mg setup {t_mg_setup:.2f}s; solve...")
 

@@ -41,9 +41,12 @@ The JAX package's precision modes:
 - ``cg_segment=m``: CG as warm-started segments of m iterations, each
   restarting from the true residual.
 
-Not ported: the refuted multigrid experiments (W-cycles on the
-rediscretized hierarchy among them) and every disk cache (ROADMAP.md,
-"Not ported").
+The multigrid options the JAX package keeps off by default (measured as
+no gain there): ``mg_transfer="smoothed" | "cut"``, ``mg_deflate`` and
+``cheb_ops``.
+
+Not ported: W-cycles on the rediscretized hierarchy and every disk cache
+(ROADMAP.md, "Not ported").
 """
 
 from __future__ import annotations
@@ -60,7 +63,7 @@ from ..config import DEFAULT_DTYPE, resolve_device, synchronize
 from ..core import bases, quadrature
 from ..core.geometry import cell_geometry, cell_points
 from ..core.mesh import make_poly_mesh, unit_cell_mesh
-from ..core.ops import HHODegreeInfo, cell_rhs
+from ..core.ops import HHODegreeInfo, cell_rhs, robust_spd_solve
 from ..methods import (assembly, cells_last, condensation, fused_assembly,
                        structured)
 from ..solvers import cg, multigrid
@@ -115,6 +118,10 @@ class LevelData(NamedTuple):
     cell_loc: torch.Tensor
     S_u: Optional[torch.Tensor] = None
     irr_ids: Optional[np.ndarray] = None
+    drec: Optional[torch.Tensor] = None   # [rbs*nfd, Ci] reconstruction-map
+    #                                       deviations at the irregular
+    #                                       columns (mg_transfer="cut";
+    #                                       coarse levels only)
 
 
 class StructuredFictdomResult(NamedTuple):
@@ -364,6 +371,56 @@ def _assemble_level_uniform_lean(mesh, geom, cell_loc, batch, dist_ids,
                            _cast(cut_cond, dtype))
 
 
+@functools.lru_cache(maxsize=64)
+def _unit_recmap_host(hdi: HHODegreeInfo, h: float, device: torch.device):
+    """multigrid._unit_recmap of the square cell of side ``h`` in float64,
+    computed once per (hdi, h, device): the uniform cell's
+    harmonic-extension reconstruction map [rbs, nfd], which the cut-aware
+    transfer deviations are taken against. Callers must not write to
+    it."""
+    return multigrid._unit_recmap(hdi, h, device=device)
+
+
+def _cut_recdev(batch, recmap_u, hdi: HHODegreeInfo, problem: FictdomProblem,
+                eta: float, side: int = LOC_NEG) -> torch.Tensor:
+    """[rbs*nfd, Cc] deviations of each cut cell's harmonic-extension
+    reconstruction map from the uniform cell's ``recmap_u``: rec_i =
+    oper_i @ [[T_i], [I]] with T_i = -ATT_i^-1 ATF_i of the Nitsche cut
+    operator (cut_hho_laplacian + cut_stabilization), row r*nfd + n. The
+    cut-aware transfers (multigrid.make_reconstruction_prolongation_cl
+    ``corr``) read them. Computed in float64 from the upcast batch (sliver
+    ATT blocks round indefinite in float32), returned in the batch's
+    dtype."""
+    batch64 = _cast(batch, torch.float64)
+    oper, data = cut_methods.cut_hho_laplacian(batch64, problem.ls, hdi,
+                                               side, eta=eta)
+    lc = data + cut_methods.cut_stabilization(batch64, hdi, side)
+    cbs = bases.cell_basis_size(hdi.cell_degree)
+    T = -robust_spd_solve(lc[:, :cbs, :cbs], lc[:, :cbs, cbs:])
+    rec = torch.einsum("crt,ctn->crn", oper[:, :, :cbs], T) + \
+        oper[:, :, cbs:]
+    drec = rec - recmap_u.to(rec.device, torch.float64)[None]
+    Cc, rbs, nfd = drec.shape
+    return drec.permute(1, 2, 0).reshape(rbs * nfd, Cc).to(batch.pts.dtype)
+
+
+def _level_recdev(batch, cut_ids, irr_ids, hdi: HHODegreeInfo,
+                  problem: FictdomProblem, eta: float, n: int,
+                  side: int = LOC_NEG) -> torch.Tensor:
+    """drec [rbs*nfd, Ci] column-aligned with ``irr_ids`` (host arrays, as
+    ``cut_ids``): the cut columns carry their reconstruction-map deviation
+    (_cut_recdev); the columns of cells that are only displaced stay zero
+    (their operator deviates by O(node displacement), immaterial next to
+    the Nitsche terms)."""
+    dev = batch.pts.device
+    d_cut = _cut_recdev(batch, _unit_recmap_host(hdi, 1.0 / n, dev), hdi,
+                        problem, eta, side)
+    drec = d_cut.new_zeros((d_cut.shape[0], len(irr_ids)))
+    pos = np.searchsorted(np.asarray(irr_ids), np.asarray(cut_ids))
+    drec[:, torch.as_tensor(pos, device=dev)] = d_cut
+    return drec
+
+
 def _check_fitted(fitted: str) -> None:
     if fitted not in ("lean", "uniform", "full"):
         raise ValueError(f"fitted={fitted!r}: expected 'lean', 'uniform' "
@@ -472,16 +529,35 @@ def expand_ring(ids: np.ndarray, n: int, ring: int = 1) -> np.ndarray:
 def build_coarse_levels(N: int, hdi: HHODegreeInfo, problem: FictdomProblem,
                         eta: float, int_refsteps: int, *, device,
                         dtype=DEFAULT_DTYPE, fitted: str = "lean",
-                        mg_coarsest: int = 8,
-                        mixed: bool = False) -> Dict[int, LevelData]:
+                        mg_coarsest: int = 8, mixed: bool = False,
+                        drec: bool = False,
+                        timings: Optional[dict] = None
+                        ) -> Dict[int, LevelData]:
     """{n: LevelData} of the rediscretized levels N/2, ..., mg_coarsest,
     in the fine level's form and without right-hand sides (JAX
     build_coarse_level, without its disk cache): the V-cycle needs only
-    (dS or S, S_u, irr_ids, cut_ids) of each. ``mixed``: build_level's."""
-    return {n: build_level(n, hdi, problem, eta, int_refsteps,
-                           device=device, dtype=dtype, fitted=fitted,
-                           with_rhs=False, mixed=mixed)
-            for n in multigrid._mg_sizes(N, mg_coarsest)[1:]}
+    (dS or S, S_u, irr_ids, cut_ids) of each. ``mixed``: build_level's.
+    ``drec``: each level also carries its reconstruction-map deviations
+    (_level_recdev, for mg_transfer="cut"; lean levels only), their
+    seconds summed into ``timings["drec_setup_s"]``."""
+    if drec and fitted == "full":
+        raise ValueError("the cut-aware transfers need lean coarse levels "
+                         "(fitted='lean' or 'uniform')")
+    timings = {} if timings is None else timings
+    levels = {}
+    for n in multigrid._mg_sizes(N, mg_coarsest)[1:]:
+        lev = build_level(n, hdi, problem, eta, int_refsteps, device=device,
+                          dtype=dtype, fitted=fitted, with_rhs=False,
+                          mixed=mixed)
+        if drec:
+            t0 = time.perf_counter()
+            lev = lev._replace(drec=_level_recdev(
+                lev.batch, lev.cut_ids, lev.irr_ids, hdi, problem, eta, n))
+            synchronize(device)
+            timings["drec_setup_s"] = timings.get("drec_setup_s", 0.0) + \
+                time.perf_counter() - t0
+        levels[n] = lev
+    return levels
 
 
 def band_galerkin_levels(levels: Dict[int, LevelData], hdi: HHODegreeInfo,
@@ -548,15 +624,27 @@ def level_multigrid(levels: Dict[int, LevelData], hdi: HHODegreeInfo, *,
                     patch_ring: int = 1, patch_colors: int = 1,
                     cheb_degree: int = 4, patch_sweeps: int = 1,
                     smoother: str = "chebyshev", galerkin=None,
-                    gamma: int = 1, dtype=None) -> multigrid.Multigrid:
+                    gamma: int = 1, dtype=None, cheb_ops: str = "exact",
+                    mg_transfer: str = "uniform") -> multigrid.Multigrid:
     """The V-cycle over ``levels`` ({n: LevelData}, the finest included):
     ``smoother`` (multigrid.build_multigrid: Chebyshev(cheb_degree) over
     block-Jacobi, or damped block-Jacobi or Jacobi), then the
     interface-patch smoother on the cut cells grown by ``patch_ring``.
-    ``galerkin`` ({n: GalerkinLevel} of band_galerkin_levels) and
-    ``gamma`` go to build_multigrid. ``dtype``: the V-cycle's (every
-    level's operator is cast to it), by default the finest level's."""
+    ``galerkin`` ({n: GalerkinLevel} of band_galerkin_levels), ``gamma``
+    and ``cheb_ops`` go to build_multigrid. ``mg_transfer``: 'uniform',
+    'smoothed' (operator-smoothed transfers) or 'cut' (the cut-aware
+    correction from each coarse level's ``drec``, which every coarse
+    level must carry). ``dtype``: the V-cycle's (every level's operator is
+    cast to it), by default the finest level's."""
+    _check_mg_transfer(mg_transfer)
     N = max(levels)
+    rec_dev = None
+    if mg_transfer == "cut":
+        rec_dev = {n: lev.drec for n, lev in levels.items() if n != N}
+        if any(d is None for d in rec_dev.values()):
+            raise ValueError("mg_transfer='cut' needs the reconstruction-map "
+                             "deviations of every coarse level "
+                             "(build_coarse_levels(drec=True))")
     lean = {n: isinstance(lev.cond, cells_last.UniformCondCL)
             for n, lev in levels.items()}
     dtype = _level_S(levels[N]).dtype if dtype is None else dtype
@@ -570,7 +658,8 @@ def level_multigrid(levels: Dict[int, LevelData], hdi: HHODegreeInfo, *,
         patch_sweeps=patch_sweeps, smoother=smoother,
         uniform_per_level={n: (lev.S_u, lev.irr_ids)
                            for n, lev in levels.items() if lean[n]},
-        galerkin_per_level=galerkin, gamma=gamma)
+        galerkin_per_level=galerkin, gamma=gamma, cheb_ops=cheb_ops,
+        rec_dev_per_level=rec_dev, smooth_transfers=mg_transfer == "smoothed")
 
 
 class FaceSystem(NamedTuple):
@@ -659,22 +748,34 @@ def mg_preconditioner(fine: LevelData, N: int, hdi: HHODegreeInfo,
                       mg_coarsest: int = 8, mg_galerkin: bool = False,
                       mg_gamma: int = 1, timings: Optional[dict] = None,
                       mixed: bool = False, mg_f32: bool = False,
-                      **vcycle) -> Callable:
+                      mg_transfer: str = "uniform", mg_deflate: int = 0,
+                      patch_ring: int = 1, **vcycle) -> Callable:
     """The V-cycle of solve_fictdom_structured over ``fine`` and its
     rediscretized coarse levels N/2, ..., ``mg_coarsest`` (built in
     ``dtype``, with the float64 cut splice if ``mixed``; with
     ``mg_galerkin`` the exact Galerkin coarse operators instead), as the
     preconditioner callable of CG. The V-cycle runs in the fine level's
     dtype, or in float32 with ``mg_f32``; the callable casts a residual
-    of another dtype to it and the result back. ``vcycle``:
-    level_multigrid's smoother keywords. Phase times go into
-    ``timings``: assemble_coarse_s, galerkin_setup_s, mg_setup_s."""
+    of another dtype to it and the result back. ``mg_transfer``:
+    level_multigrid's ('cut' builds the coarse levels with their drec).
+    ``mg_deflate`` = K > 0 adds the interface-band deflation of 2K+1
+    modes on the fine level's patch cells (the cut cells grown by
+    ``patch_ring``), built on the fine level's operator in the V-cycle's
+    dtype: z = V(r) + D(r), inside the precision cast (the JAX package's
+    _solve_jit); without cut cells there is no band and nothing is added.
+    ``vcycle``: level_multigrid's smoother keywords. Phase times go into
+    ``timings``: assemble_coarse_s (drec_setup_s included), drec_setup_s,
+    galerkin_setup_s, mg_setup_s, deflate_setup_s."""
+    _check_mg_transfer(mg_transfer)
+    if mg_deflate < 0:
+        raise ValueError(f"mg_deflate={mg_deflate!r}: expected 0 or more")
     timings = {} if timings is None else timings
     t0 = time.perf_counter()
     levels = {N: fine}
     levels.update(build_coarse_levels(
         N, hdi, problem, eta, int_refsteps, device=device, dtype=dtype,
-        fitted=fitted, mg_coarsest=mg_coarsest, mixed=mixed))
+        fitted=fitted, mg_coarsest=mg_coarsest, mixed=mixed,
+        drec=mg_transfer == "cut", timings=timings))
     synchronize(device)
     timings["assemble_coarse_s"] = time.perf_counter() - t0
     mg_dtype = torch.float32 if mg_f32 else _level_S(fine).dtype
@@ -687,10 +788,25 @@ def mg_preconditioner(fine: LevelData, N: int, hdi: HHODegreeInfo,
     t0 = time.perf_counter()
     mg = level_multigrid(levels, hdi, mg_coarsest=mg_coarsest,
                          galerkin=galerkin, gamma=mg_gamma, dtype=mg_dtype,
+                         mg_transfer=mg_transfer, patch_ring=patch_ring,
                          **vcycle)
     synchronize(device)
     timings["mg_setup_s"] = time.perf_counter() - t0
-    return _in_dtype(mg.precondition, mg_dtype)
+    band = expand_ring(fine.cut_ids, N, patch_ring)
+    if mg_deflate == 0 or len(band) == 0:
+        return _in_dtype(mg.precondition, mg_dtype)
+    t0 = time.perf_counter()
+    fine_level = mg.levels[0]
+    _, deflate = multigrid.make_band_deflation(
+        fine_level.sys, fine_level.apply_S, band, mg_deflate, mg_dtype)
+    synchronize(device)
+    timings["deflate_setup_s"] = time.perf_counter() - t0
+
+    def precondition(r):
+        z, d = mg.precondition(r), deflate(r)
+        return cells_last.GridVecCL(z.H + d.H, z.V + d.V)
+
+    return _in_dtype(precondition, mg_dtype)
 
 
 def segmented_cg(apply_A: Callable, b, diag, params: cg.CGParams,
@@ -751,31 +867,46 @@ def solve_level(level: LevelData, N: int, hdi: HHODegreeInfo,
     return local, res
 
 
-# Options of the JAX solve that the port leaves out: name -> (the value
-# that is accepted, what the option is). They are experiments the JAX
-# package measured as no gain (ROADMAP.md, "Not ported"), as are W-cycles
-# on the rediscretized hierarchy (mg_gamma > 1 without mg_galerkin).
-_NOT_PORTED = {
-    "mg_transfer": ("uniform", "a transfer other than the uniform "
-                    "reconstruction one"),
-    "mg_deflate": (0, "interface-band deflation"),
-    "cheb_ops": ("exact", "a Chebyshev operator pair other than exact"),
-}
+MG_TRANSFERS = ("uniform", "smoothed", "cut")
 
 
-def _check_unported(options: dict) -> None:
-    """Raise NotImplementedError for an option of _NOT_PORTED set to
-    anything but its accepted value (or None), TypeError for an unknown
-    keyword."""
-    for name, value in options.items():
-        if name not in _NOT_PORTED:
-            raise TypeError("solve_fictdom_structured() got an unexpected "
-                            f"keyword argument {name!r}")
-        accepted, what = _NOT_PORTED[name]
-        if value is not None and value != accepted:
-            raise NotImplementedError(
-                f"{name}={value!r}: {what} is not ported (ROADMAP.md, "
-                "'Not ported')")
+def _check_mg_transfer(mg_transfer: str) -> None:
+    if mg_transfer not in MG_TRANSFERS:
+        raise ValueError(f"mg_transfer={mg_transfer!r}: expected one of "
+                         f"{MG_TRANSFERS}")
+
+
+def _check_mg_options(mg_transfer: str, mg_deflate: int, cheb_ops: str, *,
+                      precond: str, smoother: str, fitted: str,
+                      coarse_fitted: Optional[str] = None) -> None:
+    """The multigrid options mg_transfer, mg_deflate and cheb_ops: their
+    values, and the combinations where they cannot act, which raise
+    ValueError (the JAX package ignores them there and runs without
+    them): any of them without precond='mg'; mg_transfer='cut' on full
+    coarse levels (``coarse_fitted``, by default ``fitted``: they carry no
+    drec); cheb_ops other than 'exact' on a full fine level (no unit-cell
+    stencil) or with a smoother other than Chebyshev."""
+    _check_mg_transfer(mg_transfer)
+    if cheb_ops not in multigrid.CHEB_OPS:
+        raise ValueError(f"cheb_ops={cheb_ops!r}: expected one of "
+                         f"{multigrid.CHEB_OPS}")
+    if mg_deflate < 0:
+        raise ValueError(f"mg_deflate={mg_deflate!r}: expected 0 or more")
+    chosen = [f"{name}={value!r}" for name, value, off in (
+        ("mg_transfer", mg_transfer, "uniform"),
+        ("mg_deflate", mg_deflate, 0), ("cheb_ops", cheb_ops, "exact"))
+        if value != off]
+    if chosen and precond != "mg":
+        raise ValueError(f"{', '.join(chosen)} needs precond='mg', not "
+                         f"{precond!r}")
+    if mg_transfer == "cut" and (coarse_fitted or fitted) == "full":
+        raise ValueError("mg_transfer='cut' needs lean coarse levels "
+                         "(fitted 'lean' or 'uniform'): full levels carry no "
+                         "reconstruction-map deviations")
+    if cheb_ops != "exact" and (fitted == "full" or smoother != "chebyshev"):
+        raise ValueError(f"cheb_ops={cheb_ops!r} needs the unit-cell stencil "
+                         "and the Chebyshev smoother (got fitted="
+                         f"{fitted!r}, mg_smoother={smoother!r})")
 
 
 def _check_galerkin(mg_galerkin: bool, mg_gamma: int, fitted: str,
@@ -804,10 +935,11 @@ def solve_fictdom_structured(
         n_smooth: int = 1, patch_ring: int = 1, patch_colors: int = 1,
         cheb_degree: int = 4, patch_sweeps: int = 1,
         mg_smoother: str = "chebyshev", mg_galerkin: bool = False,
-        mg_gamma: int = 1, mixed: Optional[bool] = None,
-        mg_f32: bool = False, cg_f64: Optional[bool] = None,
-        cg_segment: int = 0, device=None, dtype=DEFAULT_DTYPE,
-        **unported) -> StructuredFictdomResult:
+        mg_gamma: int = 1, mg_transfer: str = "uniform",
+        mg_deflate: int = 0, cheb_ops: str = "exact",
+        mixed: Optional[bool] = None, mg_f32: bool = False,
+        cg_f64: Optional[bool] = None, cg_segment: int = 0, device=None,
+        dtype=DEFAULT_DTYPE) -> StructuredFictdomResult:
     """End-to-end fictdom solve on the generated N x N mesh at HHO degree
     ``degree`` (cell degree k+1, face degree k).
 
@@ -824,6 +956,16 @@ def solve_fictdom_structured(
     (band_galerkin_levels; their host setup is timed as
     ``galerkin_setup_s``), with ``mg_gamma`` coarse visits per gap of the
     top two.
+
+    Multigrid options the JAX package keeps off by default (it measured
+    them as no gain): ``mg_transfer`` 'smoothed' (operator-smoothed
+    transfers) or 'cut' (each irregular coarse cell's own Nitsche
+    harmonic-extension reconstruction in the transfers; coarse levels
+    carry its deviations, timed as ``drec_setup_s``), ``mg_deflate`` = K
+    (the V-cycle plus a deflation of 2K+1 Fourier modes along the
+    interface band, ``deflate_setup_s``) and ``cheb_ops`` 'mixed' or
+    'uniform' (the Chebyshev polynomial on the constant-stencil operator,
+    and for 'uniform' its uncorrected block-Jacobi base).
 
     Precision (the module docstring): ``mixed`` (the float32 system with
     the float64 cut splice, on every level), ``mg_f32`` (the float32
@@ -842,9 +984,10 @@ def solve_fictdom_structured(
     S); the Jacobi smoother on a lean level takes the whole operator's
     diagonal, where the JAX package's fails; ``mg_galerkin=True`` with
     fitted='full' or a precond other than 'mg' raises ValueError, where
-    the JAX package ignores the flag. Options of the JAX solve that are
-    not ported raise NotImplementedError (_check_unported, and mg_gamma
-    > 1 without mg_galerkin).
+    the JAX package ignores the flag, and so do the multigrid options
+    where they cannot act (_check_mg_options). W-cycles on the
+    rediscretized hierarchy (mg_gamma > 1 without mg_galerkin) are not
+    ported and raise NotImplementedError.
 
     Runs on CUDA unless ``device="cpu"``; raises without a device when
     CUDA is absent. ``timings`` holds the phase times, each ended by a
@@ -852,7 +995,6 @@ def solve_fictdom_structured(
     device = resolve_device(device)
     _check_precond(precond)
     _check_fitted(fitted)
-    _check_unported(unported)
     mixed = bool(mixed)
     _check_mixed(mixed, dtype)
     if cg_segment < 0:
@@ -863,6 +1005,8 @@ def solve_fictdom_structured(
     if mg_smoother not in multigrid.SMOOTHERS:
         raise ValueError(f"mg_smoother={mg_smoother!r}: expected one of "
                          f"{multigrid.SMOOTHERS}")
+    _check_mg_options(mg_transfer, mg_deflate, cheb_ops, precond=precond,
+                      smoother=mg_smoother, fitted=fitted)
     if fitted == "lean" and precond == "jacobi":
         raise ValueError("the lean system supports precond 'mg' and "
                          "'block_jacobi' only, as in the JAX package "
@@ -886,10 +1030,11 @@ def solve_fictdom_structured(
             fine, N, hdi, problem, eta, int_refsteps, device=device,
             dtype=dtype, fitted=fitted, mg_coarsest=mg_coarsest,
             mg_galerkin=mg_galerkin, mg_gamma=mg_gamma, timings=timings,
-            mixed=mixed, mg_f32=mg_f32, n_smooth=n_smooth,
+            mixed=mixed, mg_f32=mg_f32, mg_transfer=mg_transfer,
+            mg_deflate=mg_deflate, n_smooth=n_smooth,
             patch_ring=patch_ring, patch_colors=patch_colors,
             cheb_degree=cheb_degree, patch_sweeps=patch_sweeps,
-            smoother=mg_smoother)
+            smoother=mg_smoother, cheb_ops=cheb_ops)
     local, res = solve_level(fine, N, hdi, problem, precond, cg_params,
                              apply_mg=apply_mg, device=device,
                              timings=timings, cg_f64=cg_f64,

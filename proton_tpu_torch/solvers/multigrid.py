@@ -21,7 +21,12 @@ the Galerkin hierarchies).
   of the identity, then an eigendecomposition pseudo-inverse;
 - the Galerkin coarse hierarchy (optional): the exact R A_f P operators,
   built on the host by the pair-operator engine in float64 and applied
-  on the device as one conv2d per level plus indexed deviation pairs.
+  on the device as one conv2d per level plus indexed deviation pairs;
+- options the JAX package keeps off by default (measured as no gain
+  there): cut-aware transfers (each irregular coarse cell's own
+  reconstruction map), operator-smoothed transfers, the Chebyshev
+  polynomial on the constant-stencil operator pair (``cheb_ops``), and
+  the interface-band deflation added to the V-cycle by the caller.
 
 Everything the V-cycle indexes with (face positions, masks, transfer
 matrices, Chebyshev coefficients) is built once in ``build_multigrid``:
@@ -128,10 +133,11 @@ def _transfer_slot_matrices(hdi: HHODegreeInfo, h: float, dtype, *, device):
 
 
 def _weighted_flat(MH, MV):
-    """The transfer matrices as [6*fbs, nfd] products, rows ordered
-    (r, c, f), with the 0.5 averaging weight of the coarse-skeleton faces
-    (H rows r = 0, 2; V columns c = 0, 2) folded in. Halving is exact, so
-    this equals averaging the two adjacent reconstructions afterwards."""
+    """The transfer matrices as [6*fbs, nfd] products (or the trace
+    projectors as [6*fbs, rbs]), rows ordered (r, c, f), with the 0.5
+    averaging weight of the coarse-skeleton faces (H rows r = 0, 2; V
+    columns c = 0, 2) folded in. Halving is exact, so this equals
+    averaging the two adjacent reconstructions afterwards."""
     wH = MH.new_tensor([0.5, 1.0, 0.5])[:, None, None, None]
     wV = MV.new_tensor([0.5, 1.0, 0.5])[None, :, None, None]
     nfd = MH.shape[-1]
@@ -144,12 +150,59 @@ def _check_refinement(sys_f, sys_c) -> None:
                          "coarse grid")
 
 
+def _cut_correction(sys_c: StructuredFaceSystem, corr, dtype):
+    """The cut-aware transfer correction ``corr`` = (ids, drec, PH, PV) on
+    the device: (ids [Ci], drec [rbs, nfd, Ci], PHV [12*fbs, rbs] (the 12
+    fine-slot trace projections, H slots (r, c) then V slots, rows
+    (slot, f), skeleton slots at the 0.5 averaging weight), the fine H
+    and V flat positions [6*Ci] of each irregular cell's slots), or None
+    without irregular cells. Two irregular cells that share a face share
+    its fine slots: those positions repeat."""
+    if corr is None:
+        return None
+    ids, drec, PH, PV = corr
+    ids = np.asarray(ids, dtype=np.int64)
+    if len(ids) == 0:
+        return None
+    dev = sys_c.freeH.device
+    Nxc = sys_c.Nx
+    jj, ii = ids // Nxc, ids % Nxc
+    rbs = PH.shape[-1]
+    drec = torch.as_tensor(drec, device=dev).to(dtype)
+    if drec.shape[1] != len(ids):
+        raise ValueError(f"drec has {drec.shape[1]} columns for {len(ids)} "
+                         "irregular cells")
+    PHV = torch.cat(_weighted_flat(PH, PV)).to(dev, dtype)
+    # fine H slot (r, c) of coarse cell (J, I): row 2J + r, column 2I + c
+    # of a [2Nyc + 1, 2Nxc] grid; V slot (r, c): row 2J + r, column 2I + c
+    # of [2Nyc, 2Nxc + 1]
+    hpos = np.stack([(2 * jj + r) * (2 * Nxc) + 2 * ii + c
+                     for r in range(3) for c in range(2)])
+    vpos = np.stack([(2 * jj + r) * (2 * Nxc + 1) + 2 * ii + c
+                     for r in range(2) for c in range(3)])
+    return (torch.as_tensor(ids, device=dev),
+            drec.reshape(rbs, -1, len(ids)), PHV,
+            torch.as_tensor(hpos.reshape(-1), device=dev),
+            torch.as_tensor(vpos.reshape(-1), device=dev))
+
+
 def make_reconstruction_prolongation_cl(sys_f: StructuredFaceSystem,
                                         sys_c: StructuredFaceSystem,
                                         hdi: HHODegreeInfo, h_coarse: float,
-                                        dtype=torch.float64, mats=None):
+                                        dtype=torch.float64, mats=None,
+                                        corr=None):
     """Reconstruction-based coarse -> fine transfer on GridVecCL grids.
-    ``mats``: precomputed (MH, MV) of _transfer_slot_matrices."""
+    ``mats``: precomputed (MH, MV) of _transfer_slot_matrices.
+
+    ``corr``: the cut-aware correction (ids, drec, PH, PV): the coarse
+    irregular cell ids (sorted), their reconstruction-map deviations drec
+    [rbs*nfd, Ci] (each cell's own Nitsche harmonic-extension
+    reconstruction minus the uniform one, row r*nfd + n,
+    cut/fictdom_structured._level_recdev) and the trace projectors of
+    _transfer_face_projectors. The value at each of the 12 fine faces of
+    an irregular coarse cell gains P_slot @ (drec_i @ xl_i), skeleton
+    slots at the 0.5 averaging weight. Two cells that share a face both
+    add to its fine slots (accumulated, as the JAX package's .at[].add)."""
     fbs = sys_f.fbs
     _check_refinement(sys_f, sys_c)
     MH, MV = mats if mats is not None else _transfer_slot_matrices(
@@ -157,6 +210,7 @@ def make_reconstruction_prolongation_cl(sys_f: StructuredFaceSystem,
     AH, AV = _weighted_flat(MH, MV)
     Nyc, Nxc = sys_c.Ny, sys_c.Nx
     freeH, freeV = sys_f.freeH[None], sys_f.freeV[None]
+    cc = _cut_correction(sys_c, corr, MH.dtype)
 
     def prolong(xc: GridVecCL) -> GridVecCL:
         xl = cl.grid_gather_cl(sys_c, xc)                   # [nfd, Cc]
@@ -178,6 +232,14 @@ def make_reconstruction_prolongation_cl(sys_f: StructuredFaceSystem,
         V[:, :, 0:-1:2] = rows2(0)
         V[:, :, 2::2] += rows2(2)
         V[:, :, 1::2] = rows2(1)
+        if cc is not None:
+            ids, drec, PHV, hpos, vpos = cc
+            dv = torch.einsum("rni,ni->ri", drec, xl[:, ids])   # [rbs, Ci]
+            add = (PHV @ dv).reshape(12, fbs, -1)           # [slot, f, Ci]
+            H.view(fbs, -1).index_add_(
+                1, hpos, add[:6].permute(1, 0, 2).reshape(fbs, -1))
+            V.view(fbs, -1).index_add_(
+                1, vpos, add[6:].permute(1, 0, 2).reshape(fbs, -1))
         return GridVecCL(H * freeH, V * freeV)
 
     return prolong
@@ -186,12 +248,14 @@ def make_reconstruction_prolongation_cl(sys_f: StructuredFaceSystem,
 def make_reconstruction_restriction_cl(sys_f: StructuredFaceSystem,
                                        sys_c: StructuredFaceSystem,
                                        hdi: HHODegreeInfo, h_coarse: float,
-                                       dtype=torch.float64, mats=None):
+                                       dtype=torch.float64, mats=None,
+                                       corr=None):
     """Adjoint of make_reconstruction_prolongation_cl as a stencil: per
     coarse cell, gather its 12 fine-face values by strided slicing
     (skeleton faces carry the 0.5 averaging weight), contract with the
     transfer matrices transposed, and accumulate the cell contributions
-    onto the coarse grids."""
+    onto the coarse grids. ``corr``: the prolongation's cut-aware
+    correction, whose exact adjoint is added on the irregular cells."""
     fbs = sys_f.fbs
     _check_refinement(sys_f, sys_c)
     MH, MV = mats if mats is not None else _transfer_slot_matrices(
@@ -200,6 +264,9 @@ def make_reconstruction_restriction_cl(sys_f: StructuredFaceSystem,
     AHt, AVt = AH.T.contiguous(), AV.T.contiguous()
     Nyc, Nxc = sys_c.Ny, sys_c.Nx
     freeH, freeV = sys_f.freeH[None], sys_f.freeV[None]
+    cc = _cut_correction(sys_c, corr, MH.dtype)
+    if cc is not None:
+        PHVt = cc[2].T.contiguous()
 
     def restrict(rf: GridVecCL) -> GridVecCL:
         # adjoint of the prolongation's final masking: mask the input
@@ -216,7 +283,16 @@ def make_reconstruction_restriction_cl(sys_f: StructuredFaceSystem,
         co = V[:, :, 1::2].reshape(fbs, Nyc, 2, Nxc)
         fv = torch.stack([ce[..., :-1], co, ce[..., 1:]])  # [3c, f, Y, 2r, X]
         fv = fv.permute(3, 0, 1, 2, 4).reshape(6 * fbs, Nyc * Nxc)
-        return cl.grid_scatter_cl(sys_c, torch.addmm(AHt @ fh, AVt, fv))
+        contrib = torch.addmm(AHt @ fh, AVt, fv)          # [nfd, Cc]
+        if cc is not None:
+            ids, drec, _, hpos, vpos = cc
+            slots = torch.cat([                            # [slot, f, Ci]
+                H.reshape(fbs, -1)[:, hpos].reshape(fbs, 6, -1),
+                V.reshape(fbs, -1)[:, vpos].reshape(fbs, 6, -1)],
+                dim=1).permute(1, 0, 2).reshape(12 * fbs, -1)
+            s = PHVt @ slots                               # [rbs, Ci]
+            contrib.index_add_(1, ids, torch.einsum("rni,ri->ni", drec, s))
+        return cl.grid_scatter_cl(sys_c, contrib)
 
     return restrict
 
@@ -874,6 +950,155 @@ def _vcycle(mg: Multigrid, lvl: int, b: GridVecCL) -> GridVecCL:
 
 
 SMOOTHERS = ("chebyshev", "block_jacobi", "jacobi")
+CHEB_OPS = ("exact", "mixed", "uniform")
+
+
+def _cheb_op_pair(sys_n: StructuredFaceSystem, apply_S, base, S_u,
+                  cheb_ops: str):
+    """(operator, preconditioner) the Chebyshev polynomial is built on.
+    'exact': the level's operator and its corrected block-Jacobi base;
+    'mixed': the inner matvecs on the pure constant stencil of the unit
+    cell, the corrected base kept (it keeps the sliver rows' scaling);
+    'uniform': the constant stencil and the uncorrected constant-block
+    base. The smoother stays SPD in every mode (a fixed polynomial of an
+    SPD pair), and the V-cycle's residuals always use the level's own
+    operator. ``S_u`` None (a level without the constant-stencil
+    decomposition) is refused for 'mixed' and 'uniform'."""
+    if cheb_ops == "exact":
+        return apply_S, base
+    if S_u is None:
+        raise ValueError(f"cheb_ops={cheb_ops!r} needs the constant-stencil "
+                         f"decomposition (uniform_per_level) on level "
+                         f"{sys_n.Nx}")
+    apply_sm = cl.make_uniform_operator_cl(sys_n, S_u)
+    if cheb_ops == "mixed":
+        return apply_sm, base
+    return apply_sm, cl.make_uniform_block_jacobi_cl(
+        sys_n, *cl.uniform_block_jacobi_blocks(sys_n, S_u))
+
+
+def _smooth_transfer_pair(prol, restrict, apply_S, base, lam: float):
+    """Operator-smoothed transfers (smoothed-aggregation style):
+    P' = (I - omega M^-1 A) P and R' = R (I - omega A M^-1) with
+    omega = 4 / (3 lambda_max(M^-1 A)); R' is the exact adjoint of P'
+    since A and M are symmetric. One extra operator and base apply per
+    transfer."""
+    om = 4.0 / (3.0 * lam)
+
+    def prol_s(xc: GridVecCL) -> GridVecCL:
+        p = prol(xc)
+        return _axpby(1.0, p, -om, base(apply_S(p)))
+
+    def restrict_s(rf: GridVecCL) -> GridVecCL:
+        return restrict(_axpby(1.0, rf, -om, apply_S(base(rf))))
+
+    return prol_s, restrict_s
+
+
+# ---------------------------------------------------------------------------
+# Interface-band deflation
+#
+# The error the V-cycle leaves on cut problems is smooth along the
+# interface band: the patch and Chebyshev smoothers are local, and the
+# rediscretized coarse level cuts the circle at other offsets, so its
+# correction of band-tangential smooth modes degrades as N grows. A small
+# space B of Fourier modes in the interface angle, on the constant
+# components of the band faces, holds those modes; the additive coarse
+# correction z += B (B^T A B)^-1 B^T r removes them at O(m^2) cost per
+# apply, m = 2K+1 modes.
+# ---------------------------------------------------------------------------
+
+
+def band_face_features(n: int, cut_ids, K: int):
+    """The deflation basis over the free faces of the cells ``cut_ids`` on
+    the n x n unit-square grid, on the host: ((hj, hi, Wh), (vj, vi, Wv))
+    with W [nface, 2K+1] the Fourier features [1, cos k theta, sin k
+    theta] of the face centre's angle around the band's centroid (for
+    star-shaped interfaces), rows scaled by 1/sqrt(nface)."""
+    ids = np.asarray(cut_ids)
+    jj, ii = ids // n, ids % n
+    hkey = np.unique(np.concatenate([jj * n + ii, (jj + 1) * n + ii]))
+    hkey = hkey[(hkey // n != 0) & (hkey // n != n)]
+    W = n + 1
+    vkey = np.unique(np.concatenate([jj * W + ii, jj * W + ii + 1]))
+    vkey = vkey[(vkey % W != 0) & (vkey % W != n)]
+    hj, hi = hkey // n, hkey % n
+    vj, vi = vkey // W, vkey % W
+    hx, hy = (hi + 0.5) / n, hj / n
+    vx, vy = vi / n, (vj + 0.5) / n
+    xc = np.concatenate([hx, vx]).mean() if len(hx) + len(vx) else 0.5
+    yc = np.concatenate([hy, vy]).mean() if len(hy) + len(vy) else 0.5
+
+    def feats(x, y):
+        th = np.arctan2(y - yc, x - xc)
+        cols = [np.ones_like(th)]
+        for k in range(1, K + 1):
+            cols.append(np.cos(k * th))
+            cols.append(np.sin(k * th))
+        return np.stack(cols, axis=1)
+
+    nf = max(len(hj) + len(vj), 1)
+    return ((hj, hi, feats(hx, hy) / np.sqrt(nf)),
+            (vj, vi, feats(vx, vy) / np.sqrt(nf)))
+
+
+def _band_basis(sys_f: StructuredFaceSystem, cut_ids, Wh, Wv):
+    """(B, Bt): y [m] -> the grids of B y (the features on the constant
+    component of the band faces, masked), and r -> B^T r [m]."""
+    K = (Wh.shape[1] - 1) // 2
+    (hj, hi, _), (vj, vi, _) = band_face_features(sys_f.Nx, cut_ids, K)
+    dev = Wh.device
+    hj, hi, vj, vi = (torch.as_tensor(a, device=dev)
+                      for a in (hj, hi, vj, vi))
+    freeH, freeV = sys_f.freeH[None], sys_f.freeV[None]
+    fbs, Ny, Nx = sys_f.fbs, sys_f.Ny, sys_f.Nx
+
+    def B(y) -> GridVecCL:
+        H = Wh.new_zeros((fbs, Ny + 1, Nx))
+        V = Wh.new_zeros((fbs, Ny, Nx + 1))
+        H[0].index_put_((hj, hi), Wh @ y, accumulate=True)
+        V[0].index_put_((vj, vi), Wv @ y, accumulate=True)
+        return GridVecCL(H * freeH, V * freeV)
+
+    def Bt(r: GridVecCL):
+        return Wh.T @ r.H[0, hj, hi] + Wv.T @ r.V[0, vj, vi]
+
+    return B, Bt
+
+
+def make_band_deflation(sys_f: StructuredFaceSystem, apply_S, cut_ids,
+                        K: int, dtype):
+    """The band deflation of the section comment on the level ``sys_f``
+    with operator ``apply_S``: returns ((Wh, Wv, G_chol), apply), apply
+    being r -> B (B^T A B)^-1 B^T r (make_band_deflation_apply). G =
+    B^T A B is built from the 2K+1 operator columns, symmetrized and
+    shifted by 100 eps / m tr(G) before its Cholesky factor."""
+    (_, _, Wh), (_, _, Wv) = band_face_features(sys_f.Nx, cut_ids, K)
+    dev = sys_f.freeH.device
+    Wh = torch.as_tensor(Wh, device=dev).to(dtype)
+    Wv = torch.as_tensor(Wv, device=dev).to(dtype)
+    m = Wh.shape[1]
+    B, Bt = _band_basis(sys_f, cut_ids, Wh, Wv)
+    eye = torch.eye(m, dtype=dtype, device=dev)
+    G = torch.stack([Bt(apply_S(B(eye[j]))) for j in range(m)], dim=1)
+    shift = 100.0 * torch.finfo(dtype).eps / m
+    G = 0.5 * (G + G.T) + shift * torch.trace(G) * eye
+    arrays = (Wh, Wv, torch.linalg.cholesky(G))
+    return arrays, make_band_deflation_apply(sys_f, cut_ids, arrays)
+
+
+def make_band_deflation_apply(sys_f: StructuredFaceSystem, cut_ids,
+                              arrays):
+    """The deflation apply r -> B (B^T A B)^-1 B^T r from the arrays
+    (Wh, Wv, G_chol) of make_band_deflation; ``cut_ids`` give the face
+    index sets again."""
+    Wh, Wv, G_chol = arrays
+    B, Bt = _band_basis(sys_f, cut_ids, Wh, Wv)
+
+    def apply(r: GridVecCL) -> GridVecCL:
+        return B(torch.cholesky_solve(Bt(r)[:, None], G_chol)[:, 0])
+
+    return apply
 
 
 def _jacobi(diag: GridVecCL):
@@ -900,9 +1125,11 @@ def build_multigrid(N: int, fbs: int, S_per_level, hdi: HHODegreeInfo,
                     cheb_degree: int = 4, patch_colors: int = 1,
                     uniform_per_level=None, smoother: str = "chebyshev",
                     omega: float = 0.67, galerkin_per_level=None,
-                    gamma: int = 1) -> Multigrid:
+                    gamma: int = 1, cheb_ops: str = "exact",
+                    rec_dev_per_level=None,
+                    smooth_transfers: bool = False) -> Multigrid:
     """The V-cycle over meshes N, N/2, ..., coarsest of the unit square,
-    on cells-last grids (the JAX package's layout="cl", cheb_ops="exact").
+    on cells-last grids (the JAX package's layout="cl").
 
     ``smoother``: 'chebyshev' (Chebyshev(cheb_degree) over the
     block-Jacobi-preconditioned operator), 'block_jacobi' (per-face
@@ -926,10 +1153,27 @@ def build_multigrid(N: int, fbs: int, S_per_level, hdi: HHODegreeInfo,
     (galerkin_patch_setup) use it, while the block-Jacobi or Jacobi base
     stays the rediscretized one of S_per_level. A coarsest entry with
     coarse_Q replaces the dense pseudo-inverse. ``gamma`` > 1 re-visits the
-    coarse problem of the top two gaps (Multigrid.gamma)."""
+    coarse problem of the top two gaps (Multigrid.gamma).
+
+    ``cheb_ops`` ('exact', 'mixed', 'uniform'): the operator pair of the
+    Chebyshev polynomial and of its eigenvalue estimate (_cheb_op_pair;
+    'mixed' and 'uniform' need ``uniform_per_level`` on every level).
+    ``rec_dev_per_level`` ({n: drec [rbs*nfd, Ci]}, column-aligned with
+    level n's irregular ids) adds the cut-aware correction to the
+    transfers of every gap whose coarse level n has an entry.
+    ``smooth_transfers`` wraps every transfer pair in
+    _smooth_transfer_pair with the level's operator and base, at the
+    Chebyshev smoother's eigenvalue (a fresh estimate with the damped
+    smoothers)."""
     if smoother not in SMOOTHERS:
         raise ValueError(f"smoother={smoother!r}: expected one of "
                          f"{SMOOTHERS}")
+    if cheb_ops not in CHEB_OPS:
+        raise ValueError(f"cheb_ops={cheb_ops!r}: expected one of "
+                         f"{CHEB_OPS}")
+    if cheb_ops != "exact" and smoother != "chebyshev":
+        raise ValueError(f"cheb_ops={cheb_ops!r} needs the Chebyshev "
+                         f"smoother, not {smoother!r}")
     sizes = _mg_sizes(N, coarsest)
     dtype, device = S_per_level[N].dtype, S_per_level[N].device
     systems = {n: make_structured_system(n, n, fbs, device=device)
@@ -967,9 +1211,11 @@ def build_multigrid(N: int, fbs: int, S_per_level, hdi: HHODegreeInfo,
             apply_S = make_galerkin_operator_cl(sys_n, gal.kernel, gal.rows,
                                                 gal.cols, gal.blocks)
         if smoother == "chebyshev":
-            lam = estimate_lambda_max(apply_S, base,
+            apply_sm, base_sm = _cheb_op_pair(sys_n, apply_S, base, S_u,
+                                              cheb_ops)
+            lam = estimate_lambda_max(apply_sm, base_sm,
                                       _zeros_grid(sys_n, dtype))
-            smoothers = (make_chebyshev_smoother(apply_S, base, lam,
+            smoothers = (make_chebyshev_smoother(apply_sm, base_sm, lam,
                                                  degree=cheb_degree),)
         else:
             smoothers = (_damped(base, omega),)
@@ -997,10 +1243,28 @@ def build_multigrid(N: int, fbs: int, S_per_level, hdi: HHODegreeInfo,
             nc = sizes[i + 1]
             mats = _transfer_slot_matrices(hdi, 1.0 / nc, dtype,
                                            device=device)
+            corr = None
+            if rec_dev_per_level is not None and \
+                    rec_dev_per_level.get(nc) is not None:
+                if nc not in uniform_per_level:
+                    raise ValueError(f"level {nc}: a cut-aware transfer "
+                                     "needs its irregular ids "
+                                     "(uniform_per_level)")
+                corr = (uniform_per_level[nc][1], rec_dev_per_level[nc],
+                        *_transfer_face_projectors(hdi, 1.0 / nc,
+                                                   device=device))
             prol = make_reconstruction_prolongation_cl(
-                sys_n, systems[nc], hdi, 1.0 / nc, dtype, mats=mats)
+                sys_n, systems[nc], hdi, 1.0 / nc, dtype, mats=mats,
+                corr=corr)
             restrict = make_reconstruction_restriction_cl(
-                sys_n, systems[nc], hdi, 1.0 / nc, dtype, mats=mats)
+                sys_n, systems[nc], hdi, 1.0 / nc, dtype, mats=mats,
+                corr=corr)
+            if smooth_transfers:
+                lam_s = lam if smoother == "chebyshev" else \
+                    estimate_lambda_max(apply_S, base,
+                                        _zeros_grid(sys_n, dtype))
+                prol, restrict = _smooth_transfer_pair(prol, restrict,
+                                                       apply_S, base, lam_s)
         levels.append(MGLevel(sys_n, apply_S, smoothers, prol, restrict))
 
     nco = sizes[-1]

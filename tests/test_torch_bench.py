@@ -60,8 +60,10 @@ def _clean_env(**knobs):
 def run32():
     """(result, local, the timed assembly's condensed system) of the bench
     at 32^2 k=1, tol 1e-10, on the CPU, precision unset (float64
-    throughout); the accepted values of three unported knobs are set and
-    pass."""
+    throughout); the default values of three knobs are set and pass
+    (PALLAS=1, the one value of an unported knob that is accepted;
+    MGTRANSFER=uniform and CHEBOPS=exact, the defaults of two ported
+    ones)."""
     with pytest.MonkeyPatch.context() as mp:
         for name in [k for k in os.environ if k.startswith("PROTON_BENCH_")]:
             mp.delenv(name)
@@ -191,9 +193,7 @@ def test_failed_k2_run_exits_nonzero():
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("SEGSTYLE", "chunk"), ("CHUNK", "3"), ("MGTRANSFER", "cut"),
-    ("MGTRANSFER", "smoothed"), ("DEFLATE", "2"), ("CHEBOPS", "mixed"),
-    ("CHEBOPS", "uniform"), ("PALLAS", "0"), ("GAMMA", "2")])
+    ("SEGSTYLE", "chunk"), ("CHUNK", "3"), ("PALLAS", "0"), ("GAMMA", "2")])
 def test_unported_knobs_raise(monkeypatch, knob, value):
     """Every JAX knob the port leaves out raises NotImplementedError
     naming ROADMAP's "Not ported" before any work, one case per knob and
@@ -262,6 +262,19 @@ KNOB_CASES = [
     ({"PCOLORS": "2", "COARSEST": "4"}, ("mg_preconditioner",
                                          "patch_colors", 2)),
     ({"MAXIT": "100"}, ("solve_level", "cg_params.max_iter", 100)),
+    # the multigrid options (slice 10), with a coarse level at 4^2
+    ({"MGTRANSFER": "cut", "COARSEST": "4"},
+     ("mg_preconditioner", "mg_transfer", "cut")),
+    ({"MGTRANSFER": "cut", "UNIFORM": "0", "COARSEST": "4"},
+     ("mg_preconditioner", "mg_transfer", "cut")),
+    ({"MGTRANSFER": "smoothed", "COARSEST": "4"},
+     ("mg_preconditioner", "mg_transfer", "smoothed")),
+    ({"DEFLATE": "2", "COARSEST": "4"}, ("mg_preconditioner", "mg_deflate",
+                                         2)),
+    ({"CHEBOPS": "mixed", "COARSEST": "4"},
+     ("mg_preconditioner", "cheb_ops", "mixed")),
+    ({"CHEBOPS": "uniform", "COARSEST": "4"},
+     ("mg_preconditioner", "cheb_ops", "uniform")),
     ({"H1": "0"}, None),
     ({"NORTHSTAR": "0"}, None)]
 
@@ -275,7 +288,10 @@ KNOB_OPTIONS = {"PRECISION": None, "SEGMENT": ("cg_segment", int),
                 "COARSEST": ("mg_coarsest", int),
                 "NSMOOTH": ("n_smooth", int), "RING": ("patch_ring", int),
                 "CHEB": ("cheb_degree", int),
-                "PCOLORS": ("patch_colors", int)}
+                "PCOLORS": ("patch_colors", int),
+                "MGTRANSFER": ("mg_transfer", str),
+                "DEFLATE": ("mg_deflate", int),
+                "CHEBOPS": ("cheb_ops", str)}
 
 
 @pytest.mark.parametrize("knobs,reaches", KNOB_CASES,
@@ -375,3 +391,23 @@ def test_bench_without_device_raises_without_cuda(monkeypatch):
         bench.main([])
     with pytest.raises(RuntimeError, match="CUDA"):
         bench.run_bench(8, 1)
+
+
+@pytest.mark.parametrize("knobs", [
+    {"CHEBOPS": "mixed", "UNIFORM": "0"},
+    {"MGTRANSFER": "smoothed", "PRECOND": "block_jacobi"},
+    {"DEFLATE": "2", "PRECOND": "block_jacobi"},
+    {"MGTRANSFER": "injection"}, {"CHEBOPS": "fast"}],
+    ids=lambda kn: "-".join(f"{k}={v}" for k, v in kn.items()))
+def test_mg_knob_departures_raise(monkeypatch, knobs):
+    """The multigrid knobs raise ValueError before any work where the JAX
+    bench ignores them (a Chebyshev pair without the unit-cell stencil of
+    the fine level, any of them without the V-cycle) or where their value
+    is unknown. MGTRANSFER=cut with UNIFORM=0 runs (the coarse levels are
+    lean), as in test_knob_reaches_solve's cases."""
+    for name in [k for k in os.environ if k.startswith("PROTON_BENCH_")]:
+        monkeypatch.delenv(name)
+    for knob, value in knobs.items():
+        monkeypatch.setenv(f"PROTON_BENCH_{knob}", value)
+    with pytest.raises(ValueError):
+        bench.solve_options(1)

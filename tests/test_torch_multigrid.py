@@ -253,18 +253,30 @@ def test_lambda_max_and_chebyshev_match(jax_levels):
 
 
 def test_unported_multigrid_options_raise():
-    """Multigrid options of the JAX solve that are not ported raise
-    NotImplementedError naming ROADMAP.md; their accepted values pass the
-    check; an unknown keyword is a TypeError."""
+    """The multigrid options of the JAX solve are ported: cheb_ops,
+    mg_transfer and mg_deflate are keywords of the solve (each converges
+    at 8^2 with a coarse level at 4^2), and an unknown value of each
+    raises ValueError. W-cycles on the rediscretized hierarchy (mg_gamma
+    > 1 without mg_galerkin) are not ported and raise
+    NotImplementedError naming ROADMAP.md; an unknown keyword is a
+    TypeError."""
     for kw in (dict(cheb_ops="mixed"), dict(cheb_ops="uniform"),
                dict(mg_transfer="cut"), dict(mg_transfer="smoothed"),
-               dict(mg_deflate=4), dict(mg_gamma=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+               dict(mg_deflate=4)):
+        r = fs.solve_fictdom_structured(8, 1, device="cpu", mg_coarsest=4,
+                                        compute_h1=False, **kw)
+        assert r.exit_reason == 0, kw
+    for kw in (dict(cheb_ops="fast"), dict(mg_transfer="injection"),
+               dict(mg_deflate=-2)):
+        with pytest.raises(ValueError):
             fs.solve_fictdom_structured(8, 1, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        fs.solve_fictdom_structured(8, 1, device="cpu", mg_gamma=2)
     with pytest.raises(TypeError, match="mg_smother"):
         fs.solve_fictdom_structured(8, 1, device="cpu", mg_smother="x")
     r = fs.solve_fictdom_structured(8, 1, device="cpu", mixed=False,
                                     mg_smoother="chebyshev", cheb_ops="exact",
+                                    mg_transfer="uniform", mg_deflate=0,
                                     mg_gamma=1, compute_h1=False)
     assert r.exit_reason == 0
 

@@ -199,20 +199,30 @@ def test_end_to_end_gates(N, k):
 
 def test_jacobi_solve_and_unported_options():
     """The Jacobi-preconditioned solve converges to the same H1 error;
-    options that are not ported raise NotImplementedError (mg_gamma > 1
+    the option that is not ported raises NotImplementedError (mg_gamma > 1
     without mg_galerkin: W-cycles on the rediscretized hierarchy); the
-    Galerkin hierarchy on the full system raises ValueError."""
+    Galerkin hierarchy and the cut-aware transfers on the full system
+    raise ValueError (the JAX package ignores both there), and the
+    cut-aware transfers on the lean system converge to the same H1
+    error."""
     r = fs.solve_fictdom_structured(16, 1, precond="jacobi", fitted="full",
                                     cg_params=cg.CGParams(**_cgp()),
                                     device="cpu")
     assert r.exit_reason == cg.CONVERGED
     assert np.isclose(r.h1_error, GATES[(16, 1)][1], rtol=1e-6)
-    for unported in (dict(mg_gamma=2), dict(mg_transfer="cut")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fs.solve_fictdom_structured(8, 1, device="cpu", **unported)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        fs.solve_fictdom_structured(8, 1, device="cpu", mg_gamma=2)
     with pytest.raises(ValueError, match="mg_galerkin"):
         fs.solve_fictdom_structured(8, 1, fitted="full", mg_galerkin=True,
                                     device="cpu")
+    with pytest.raises(ValueError, match="mg_transfer"):
+        fs.solve_fictdom_structured(8, 1, fitted="full", mg_transfer="cut",
+                                    device="cpu")
+    r = fs.solve_fictdom_structured(16, 1, mg_transfer="cut",
+                                    cg_params=cg.CGParams(**_cgp()),
+                                    device="cpu")
+    assert r.exit_reason == cg.CONVERGED
+    assert np.isclose(r.h1_error, GATES[(16, 1)][1], rtol=1e-6)
 
 
 @pytest.fixture(scope="module")
