@@ -196,7 +196,18 @@ transfers, the interface-band deflation; K1 on the lean path's shapes):
     launches on all 65,536 cells, each geometry's H1 below
     FAMILY_F32_H1_LIMIT, printed beside phase 21's float64 run of the
     same radii), and K1 in float32 against its plain version on its first
-    geometry's displaced mesh.
+    geometry's displaced mesh;
+
+the package namespace (proton_tpu_torch/__init__.py, the names of
+proton_tpu/__init__.py; no kernel of its own):
+
+28. [namespace] the library sample of the verify notes through
+    ``import proton_tpu_torch as pt`` with no device given (so on the
+    card): pt.make_quad_mesh, pt.HHODegreeInfo(2, 1),
+    pt.assembly.build_dofmap, poisson.solve_poisson and compute_errors on
+    sin(pi x) sin(pi y) at N = 8, 16, 32; the L2 and energy orders within
+    0.2 of 3 and 2, the boundary codes and __version__ those of the JAX
+    package, and K1 launched no time.
 
 Every phase prints its seconds (`[phase]`). To fit the 1,000 s budget,
 depth was cut: the fictdom_family app runs at -B 8 (was 64) and its
@@ -2707,6 +2718,41 @@ def mg_options_phase(refs, app_f64: dict, bw: float, f32_peak: float):
     return launches[1], launches[2], *family
 
 
+def namespace_phase() -> None:
+    """Phase 28: the verify notes' library sample through the package
+    namespace, on the card."""
+    import proton_tpu_torch as pt
+    from proton_tpu_torch.methods import fused_assembly as fa, poisson
+
+    check((pt.BND_NONE, pt.BND_DIRICHLET, pt.BND_NEUMANN, pt.BND_ROBIN) ==
+          (0, 1, 2, 3) and pt.__version__ == "0.1.0", "namespace constants")
+    rhs, sol, grad = _sin_problem()
+    fa.reset_launch_counts()
+    prev = None
+    for N in (8, 16, 32):
+        mesh = pt.make_quad_mesh(Nx=N, Ny=N)
+        check(mesh.points.device.type == "cuda", "namespace mesh device")
+        hdi = pt.HHODegreeInfo(2, 1)
+        dm = pt.assembly.build_dofmap(mesh, hdi)
+        s = poisson.solve_poisson(mesh, dm, hdi, rhs, sol)
+        e = poisson.compute_errors(mesh, hdi, s, sol, grad)
+        l2, en = float(e.l2), float(e.energy)
+        check(s.exit_reason == pt.cg.CONVERGED and math.isfinite(l2) and
+              math.isfinite(en), f"namespace {N}^2 solve")
+        orders = {}
+        if prev is not None:
+            orders = dict(order_l2=math.log2(prev[0] / l2),
+                          order_energy=math.log2(prev[1] / en))
+            check(abs(orders["order_l2"] - 3) <= 0.2 and
+                  abs(orders["order_energy"] - 2) <= 0.2,
+                  f"namespace orders at {N}^2: {orders}")
+        line("namespace", N=N, k=1, iterations=s.iterations, l2=l2,
+             energy=en, **orders)
+        prev = (l2, en)
+    check(fa.fused_local_operator.launches == 0,
+          "the namespace sample launched K1")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2998,6 +3044,10 @@ def main() -> int:
      family_f32_row) = mg_options_phase(ref_options, app_f64, bw, f32_peak)
     del ref_options
     phase_done("27 mg_options")
+
+    # 28. the package namespace
+    namespace_phase()
+    phase_done("28 namespace")
 
     line("total", seconds=round(time.perf_counter() - t_start, 3))
     print(smi, flush=True)

@@ -31,8 +31,12 @@ import torch
 
 from ..config import DEFAULT_DTYPE, resolve_device
 
+# boundary condition codes (the reference's `boundary` enum,
+# basic_mesh.hpp:105-111)
 BND_NONE = 0
 BND_DIRICHLET = 1
+BND_NEUMANN = 2
+BND_ROBIN = 3
 
 
 @dataclasses.dataclass(frozen=True)

@@ -61,6 +61,9 @@ def golub_welsch(degree: int) -> Tuple[np.ndarray, np.ndarray]:
     return nodes, weights
 
 
+edge_quadrature = gauss_legendre  # alias, quadratures.hpp:160-165
+
+
 @lru_cache(maxsize=None)
 def duffy_triangle(degree: int) -> Tuple[np.ndarray, np.ndarray]:
     """Collapsed (Duffy) tensor rule on the reference triangle, exact for

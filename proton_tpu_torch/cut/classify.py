@@ -53,6 +53,10 @@ class CutData:
     agglo_set: torch.Tensor
     distorted: torch.Tensor
 
+    @property
+    def n_interface_points(self) -> int:
+        return self.interface.shape[1]
+
 
 def _same_sign(a, b):
     return ((a >= 0) & (b >= 0)) | ((a < 0) & (b < 0))

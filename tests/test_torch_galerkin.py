@@ -9,8 +9,8 @@ hierarchy against the port's own dense R A P at 16 -> 8.
 
 The JAX side is handed the port's level data, so no JAX level is built
 (an eager JAX level build costs 10-20 s on a CPU), and the port's transfer
-slot matrices: tests/test_torch_multigrid.py holds them to the JAX
-package's to 1e-12, and the JAX package's own take 5-10 s of eager
+slot matrices: tests/test_torch_multigrid_transfers.py holds them to the
+JAX package's to 1e-12, and the JAX package's own take 5-10 s of eager
 compilation per degree on a CPU. BLAS and torch run on one thread."""
 
 import functools

@@ -5,9 +5,11 @@ face blocks, both preconditioners of the condensed system applied to a
 seeded vector, take_local_data, the H1 error, and the solve (condensed
 + MG, condensed against the full system, a kappa contrast on the
 block-Jacobi branch). The JAX package's interface solve at 16^2 k=1 runs
-once, with its per-cell operators and its multigrid setup under jax.jit;
-its preconditioner's inputs are captured on the way and fed to both
-packages."""
+once, with its per-cell operators and its multigrid setup under jax.jit
+and its multigrid transfer builders answered by the port's
+(tests/torch_jax_reference.py; tests/test_torch_multigrid_transfers.py
+holds them to the JAX package's own); its preconditioner's inputs are
+captured on the way and fed to both packages."""
 
 import numpy as np
 import jax
@@ -31,6 +33,7 @@ from proton_tpu_torch.cut import interface_problem as ip, methods
 from proton_tpu_torch.cut.classify import LOC_NEG, LOC_POS, cut_preprocess
 from proton_tpu_torch.cut.fictdom_structured import default_problem
 from proton_tpu_torch.solvers import cg
+from torch_jax_reference import jax_transfer_builders
 
 CPU = torch.device("cpu")
 PI = np.pi
@@ -67,13 +70,15 @@ def _jax_problem():
 @pytest.fixture(scope="module")
 def ref():
     """The JAX package's solve_interface at 16^2 k=1 (condensed + MG),
-    with its per-cell operators and mg_setup_cl under jax.jit, and the
-    arguments of its preconditioner and of its CG captured."""
+    with its per-cell operators and mg_setup_cl under jax.jit, its
+    transfer builders answered by the port's, and the arguments of its
+    preconditioner and of its CG captured."""
     import proton_tpu as pt
     from proton_tpu.cut import classify as jclassify
 
     captured = {}
     mp = pytest.MonkeyPatch()
+    jax_transfer_builders(mp)
     jit = jax.jit
     mp.setattr(jmethods, "interface_laplacian",
                jit(jmethods.interface_laplacian, static_argnums=(1, 2, 3)))

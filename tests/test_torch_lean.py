@@ -4,8 +4,6 @@ the rhs fold, the recovery and the patch setups on the JAX package's own
 16^2 level, and the end-to-end gates of the default solve
 (precond="mg", fitted="lean")."""
 
-import functools
-
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -16,12 +14,12 @@ from proton_tpu.core.ops import HHODegreeInfo as JHHODegreeInfo
 from proton_tpu.cut import fictdom_structured as jfs
 from proton_tpu.methods import cells_last as jcl, structured as jstructured
 from proton_tpu.solvers import cg as jcg
-from proton_tpu.solvers import multigrid as jmg
 from proton_tpu_torch import convert
 from proton_tpu_torch.core.ops import HHODegreeInfo
 from proton_tpu_torch.cut import fictdom_structured as fs
 from proton_tpu_torch.methods import cells_last, fused_assembly, structured
 from proton_tpu_torch.solvers import cg
+from torch_jax_reference import jax_solve, jax_transfer_builders
 
 CPU = torch.device("cpu")
 F64 = torch.float64
@@ -310,35 +308,26 @@ def test_lean_block_jacobi_matches_full_block_jacobi():
 def test_default_solve_matches_live_jax_solve(jax_level, monkeypatch):
     """The one live JAX lean + MG solve, 16^2 k=1, both at tol 1e-12:
     equal iteration counts within 1, per-cell local dofs within 1e-8 (the
-    cut cells' cell dofs 1e-7), H1 within rtol 1e-6. The JAX solve takes
-    its fine level from the module's jax_level fixture (the same
-    build_level call, made once) and memoizes the pure transfer-matrix
-    builders its multigrid setup calls more than once."""
-    build_level = jfs.build_level
-
-    def shared_fine_level(n, hdi, problem, *args, **kw):
-        if (n, hdi, args, kw) == (N, JHHODegreeInfo(K + 1, K),
-                                  (jfs.nitsche_eta(K), 4, False, False),
-                                  dict(with_rhs=True, fitted="lean")) and \
-                problem.cache_key == jfs.default_problem().cache_key:
-            return jax_level
-        return build_level(n, hdi, problem, *args, **kw)
-
-    monkeypatch.setattr(jfs, "build_level", shared_fine_level)
-    for name in ("_unit_recmap", "_transfer_slot_matrices"):
-        monkeypatch.setattr(jmg, name, functools.lru_cache(maxsize=None)(
-            getattr(jmg, name)))
+    cut cells' cell dofs 1e-7), H1 within rtol 1e-6. The JAX solve is its
+    _solve_jit over the levels its solve_fictdom_structured builds
+    (tests/torch_jax_reference.py): the module's jax_level fixture, and the
+    8^2 level of build_coarse_level without the deviations drec that only
+    mg_transfer="cut" reads; its transfer builders are answered by the
+    port's."""
+    jax_transfer_builders(monkeypatch)
     r = fs.solve_fictdom_structured(16, 1,
                                     cg_params=cg.CGParams(**_cgp(1e-12)),
                                     device="cpu")
-    jr = jfs.solve_fictdom_structured(16, 1, precond="mg", fitted="lean",
-                                      mixed=False, use_pallas=False,
-                                      cg_params=jcg.CGParams(**_cgp(1e-12)))
-    assert r.exit_reason == int(jr.exit_reason) == cg.CONVERGED
-    assert abs(r.iterations - int(jr.iterations)) <= 1
-    diff = np.abs(r.local.numpy() - np.asarray(jr.local))
+    coarse = jfs.build_level(8, JHHODegreeInfo(K + 1, K),
+                             jfs.default_problem(), jfs.nitsche_eta(K), 4,
+                             False, False, with_rhs=False, fitted="lean")
+    jlocal, jiters, jexit, _, jh1 = jax_solve(
+        {N: jax_level, 8: coarse}, K, jcg.CGParams(**_cgp(1e-12)))
+    assert r.exit_reason == jexit == cg.CONVERGED
+    assert abs(r.iterations - jiters) <= 1
+    diff = np.abs(r.local.numpy() - np.asarray(jlocal))
     cut_ids = fs.classify_level(16, fs.default_problem(), 4, device=CPU)[2]
     assert diff[cut_ids, :CBS].max() < 1e-7
     diff[cut_ids, :CBS] = 0.0
     assert diff.max() < 1e-8
-    assert np.isclose(r.h1_error, float(jr.h1_error), rtol=1e-6)
+    assert np.isclose(r.h1_error, jh1, rtol=1e-6)

@@ -4,25 +4,20 @@ transfer correction (prolongation, restriction, their adjointness), the
 reconstruction-map deviations of a coarse level, the interface-band
 deflation, one V-cycle apply for each option (cheb_ops 'mixed' and
 'uniform', mg_transfer 'smoothed' and 'cut', mg_deflate=4) over the JAX
-package's own 16^2 and 8^2 lean levels, and the end-to-end 16^2 solves;
-then the family app in float32 (PROTON_TPU_X64=0) against the JAX app
-run in a subprocess (this process keeps JAX's x64 on), and the
-ValueErrors where the JAX package ignores an option (the bench's knobs:
-tests/test_torch_bench.py).
+package's own 16^2 and 8^2 lean levels, and the ValueErrors where the
+JAX package ignores an option (the bench's knobs:
+tests/test_torch_bench.py). The end-to-end solves with each option and
+the family app in float32 are in tests/test_torch_mg_options_solve.py.
 
 The JAX package's transfer builders (_transfer_slot_matrices,
 _transfer_face_projectors, _unit_recmap) are handed the port's, computed
-once per (degree, h): tests/test_torch_multigrid.py holds them to the JAX
-package's to 1e-12, and the JAX package's own take seconds of eager
-compilation per call. Every JAX V-cycle and solve runs under jax.jit,
-the solves through its _solve_jit over levels built once. BLAS and torch
-run on one thread."""
+once per (degree, h) (tests/torch_jax_reference.py):
+tests/test_torch_multigrid_transfers.py holds them to the JAX package's
+to 1e-12, and the JAX package's own take seconds of compilation per
+call. Every JAX V-cycle runs under jax.jit. BLAS and torch run on one
+thread."""
 
 import functools
-import json
-import os
-import subprocess
-import sys
 
 import numpy as np
 import jax
@@ -32,26 +27,18 @@ import threadpoolctl
 import torch
 
 from proton_tpu.cut import fictdom_structured as jfs
-from proton_tpu.core.geometry import cell_geometry as jcell_geometry
 from proton_tpu.core.ops import HHODegreeInfo as JHHODegreeInfo
-from proton_tpu.methods import assembly as jassembly
 from proton_tpu.methods import cells_last as jcl, structured as jstructured
-from proton_tpu.solvers import cg as jcg, multigrid as jmg
+from proton_tpu.solvers import multigrid as jmg
 from proton_tpu_torch import convert
-from proton_tpu_torch.apps import fictdom_family
 from proton_tpu_torch.core.ops import HHODegreeInfo
-from proton_tpu_torch.cut import batched
 from proton_tpu_torch.cut import fictdom_structured as fs
 from proton_tpu_torch.methods import cells_last, structured
-from proton_tpu_torch.solvers import cg, multigrid
+from proton_tpu_torch.solvers import multigrid
+from torch_jax_reference import jax_transfer_builders, port_transfer_arrays
 
 CPU = torch.device("cpu")
 F64 = torch.float64
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-# The family app's arguments for the float32 comparison.
-FAMILY_ARGS = ["-N", "32", "-k", "1", "-B", "2"]
-
 # The V-cycle options, as solve_fictdom_structured keywords.
 OPTIONS = {"cheb_mixed": dict(cheb_ops="mixed"),
            "cheb_uniform": dict(cheb_ops="uniform"),
@@ -59,59 +46,17 @@ OPTIONS = {"cheb_mixed": dict(cheb_ops="mixed"),
            "cut": dict(mg_transfer="cut"), "deflate": dict(mg_deflate=4)}
 
 
-@functools.lru_cache(maxsize=None)
-def _port_arrays(name, cell_degree, face_degree, h):
-    """The port's transfer builder ``name`` at (degree, h) as numpy."""
-    hdi = HHODegreeInfo(cell_degree, face_degree)
-    fn = getattr(multigrid, name)
-    out = fn(hdi, h, F64, device=CPU) if name == "_transfer_slot_matrices" \
-        else fn(hdi, h, device=CPU)
-    return tuple(a.numpy() for a in out) if isinstance(out, tuple) \
-        else out.numpy()
-
-
-def _for_jax(name):
-    """The JAX package's builder ``name`` answered by the port's arrays
-    (fresh JAX arrays each call, so that none is cached inside a trace)."""
-    def fn(hdi, h, dtype=None):
-        out = _port_arrays(name, hdi.cell_degree, hdi.face_degree, float(h))
-        if isinstance(out, tuple):
-            return tuple(jnp.asarray(a, dtype) for a in out)
-        return jnp.asarray(out, dtype)
-    return fn
-
-
-def _jax_family(x64: str):
-    """The JAX app with FAMILY_ARGS in a subprocess (x64 as given)."""
-    env = dict(os.environ, PROTON_TPU_X64=x64, JAX_PLATFORMS="cpu",
-               PROTON_TPU_PLATFORM="cpu",
-               PYTHONPATH=os.pathsep.join(
-                   p for p in (ROOT, os.environ.get("PYTHONPATH")) if p))
-    return subprocess.Popen(
-        [sys.executable, "-m", "proton_tpu.apps.fictdom_family",
-         *FAMILY_ARGS], cwd=ROOT, env=env, stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True)
-
-
 @pytest.fixture(autouse=True, scope="module")
-def jax_family_f32():
-    """Starts the JAX family app in float32 in a subprocess at once (it
-    runs beside this module's tests; test_family_float32_matches_jax_app
-    reads it), hands the JAX package the port's transfer builders, and
-    keeps BLAS and torch on one thread."""
-    proc = _jax_family("0")
-    try:
-        with pytest.MonkeyPatch.context() as mp, \
-                threadpoolctl.threadpool_limits(1):
-            for name in ("_transfer_slot_matrices",
-                         "_transfer_face_projectors", "_unit_recmap"):
-                mp.setattr(jmg, name, _for_jax(name))
-            threads = torch.get_num_threads()
-            torch.set_num_threads(1)
-            yield proc
-            torch.set_num_threads(threads)
-    finally:
-        proc.kill()
+def _one_thread():
+    """Hands the JAX package the port's transfer builders, and keeps BLAS
+    and torch on one thread."""
+    with pytest.MonkeyPatch.context() as mp, \
+            threadpoolctl.threadpool_limits(1):
+        jax_transfer_builders(mp)
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        yield
+        torch.set_num_threads(threads)
 
 
 def _close(a, ref, tol):
@@ -152,7 +97,7 @@ def _transfer_pair(k, drec, corr_on=True):
     corr = (IDS, torch.as_tensor(drec), PH, PV) if corr_on else None
     jcorr = (IDS, jnp.asarray(drec), jnp.asarray(PH.numpy()),
              jnp.asarray(PV.numpy())) if corr_on else None
-    mats = tuple(jnp.asarray(m) for m in _port_arrays(
+    mats = tuple(jnp.asarray(m) for m in port_transfer_arrays(
         "_transfer_slot_matrices", k + 1, k, 0.125))
     return (multigrid.make_reconstruction_prolongation_cl(
                 sf, sc, hdi, 0.125, corr=corr),
@@ -401,129 +346,6 @@ def test_vcycle_option_matches_and_is_symmetric(jax_levels, name):
 
 
 # ---------------------------------------------------------------------------
-# End-to-end 16^2 solves
-# ---------------------------------------------------------------------------
-
-# name -> (options, iteration slack, H1 rtol)
-SOLVES = {"smoothed": (dict(mg_transfer="smoothed"), 2, 1e-6),
-          "cut": (dict(mg_transfer="cut"), 2, 1e-6),
-          "deflate": (dict(mg_deflate=4), 2, 1e-6),
-          "cheb_mixed_mg_f32": (dict(cheb_ops="mixed", mg_f32=True), 3,
-                                1e-4)}
-
-
-def _cg_params(pkg):
-    return pkg.CGParams(convergence_threshold=1e-10, divergence_threshold=1e8,
-                        max_iter=50000, apply_preconditioner=True)
-
-
-def _jax_solve(jax_levels, option):
-    """The JAX package's solve of its levels with ``option``: _solve_jit
-    with the keywords solve_fictdom_structured gives it, then its chunked
-    H1 error. Returns (iterations, exit code, H1)."""
-    hdi, problem = JHHODegreeInfo(2, 1), jfs.default_problem()
-    fine = jax_levels[16]
-    sizes = (8, 16)
-    mg_f32 = option.get("mg_f32", False)
-    local, _, iters, exit_reason, _, _ = jfs._solve_jit(
-        fine.mesh, jassembly.build_dofmap_structured(16, hdi), fine.cond,
-        tuple(jax_levels[n].cond.dS for n in sizes),
-        cg_params=_cg_params(jcg),
-        drec_list=((jax_levels[8].drec, None)
-                   if option.get("mg_transfer") == "cut" else None),
-        gal_list=None, sizes=sizes, hdi=hdi, problem=problem, precond="mg",
-        cut_levels=tuple((n, tuple(int(i) for i in jfs.expand_ring(
-            jax_levels[n].cut_ids, n, 1))) for n in sizes),
-        mg_coarsest=8, n_smooth=1, mg_f32=mg_f32, mg_smoother="chebyshev",
-        cheb_degree=4, patch_colors=1,
-        cheb_ops=option.get("cheb_ops", "exact"), patch_sweeps=1,
-        smooth_transfers=option.get("mg_transfer") == "smoothed",
-        deflate_K=option.get("mg_deflate", 0), mg_gamma=1,
-        uniform_levels=jfs.uniform_static(jax_levels), cg_f64=not mg_f32)
-    h1 = jfs.fictdom_h1_error_chunked(
-        fine.mesh, jax.jit(jcell_geometry)(fine.mesh), fine.batch,
-        fine.cell_loc, hdi, local, problem.sol_grad)
-    return int(iters), int(exit_reason), float(h1)
-
-
-@pytest.mark.parametrize("name", list(SOLVES))
-def test_solve_matches_jax(jax_levels, name):
-    """solve_fictdom_structured(16, 1, ...) with each option against the
-    JAX package's solve at tol 1e-10: both converge, iterations within 2
-    and H1 within rtol 1e-6; the float32 V-cycle with the mixed Chebyshev
-    pair within 3 and 1e-4 (float32 rounds in another order)."""
-    option, slack, rtol = SOLVES[name]
-    r = fs.solve_fictdom_structured(16, 1, cg_params=_cg_params(cg),
-                                    device="cpu", **option)
-    iters, exit_reason, h1 = _jax_solve(jax_levels, option)
-    assert r.exit_reason == cg.CONVERGED and exit_reason == 0
-    assert abs(r.iterations - iters) <= slack, (r.iterations, iters)
-    assert np.isclose(r.h1_error, h1, rtol=rtol), (r.h1_error, h1)
-    if option.get("mg_transfer") == "cut":
-        assert r.timings["drec_setup_s"] > 0.0
-    if option.get("mg_deflate"):
-        assert r.timings["deflate_setup_s"] > 0.0
-
-
-# ---------------------------------------------------------------------------
-# The family app's precision switch
-# ---------------------------------------------------------------------------
-
-
-def _app_line(capsys, monkeypatch, x64):
-    """The app's JSON line with PROTON_TPU_X64=x64, and the dtypes of the
-    local dofs of its geometries' solves (a spy on the condensed solve
-    the family calls)."""
-    solve, dtypes = batched.structured.solve_condensed_structured_cl, []
-
-    def spy(*args, **kwargs):
-        local, res = solve(*args, **kwargs)
-        dtypes.append(local.dtype)
-        return local, res
-
-    monkeypatch.setattr(batched.structured, "solve_condensed_structured_cl",
-                        spy)
-    monkeypatch.setenv("PROTON_TPU_X64", x64)
-    assert fictdom_family.main([*FAMILY_ARGS, "--device", "cpu"]) == 0
-    monkeypatch.undo()
-    return (json.loads(capsys.readouterr().out.strip().splitlines()[-1]),
-            dtypes)
-
-
-def test_family_float32_matches_jax_app(jax_family_f32, capsys,
-                                        monkeypatch):
-    """The port's family app with PROTON_TPU_X64=0 at -N 32 -k 1 -B 2
-    runs float32 (the local dofs of every geometry's solve), as the JAX app
-    with the same environment (run in a subprocess): all converged,
-    iterations within 5%. Their H1 errors
-    are float32 noise (both lie 6e-4 to 2e-3 above the float64 ones, the
-    port's 1.8e-3 / 2.1e-3 and JAX's 2.5e-3 / 2.2e-3 against 6.5e-4 /
-    1.5e-3), so each geometry's float32 H1 must lie no further from the
-    float64 H1 than twice the JAX app's does; with the switch unset the
-    app runs float64."""
-    out, err = jax_family_f32.communicate(timeout=300)
-    assert jax_family_f32.returncode == 0, err[-2000:]
-    jax_line = json.loads(out.strip().splitlines()[-1])
-    f32, dtypes32 = _app_line(capsys, monkeypatch, "0")
-    f64, dtypes64 = _app_line(capsys, monkeypatch, "1")
-    assert dtypes32 == [torch.float32] * 2 and dtypes64 == [torch.float64] * 2
-    assert f32["all_converged"] and jax_line["all_converged"]
-    assert f32["overflow"] == 0 and jax_line["overflow"] == 0
-    for a, b in zip(f32["iterations"], jax_line["iterations"]):
-        assert abs(a - b) <= 0.05 * b
-    for h32, hj, h64 in zip(f32["h1_errors"], jax_line["h1_errors"],
-                            f64["h1_errors"]):
-        assert abs(h32 - h64) <= 2 * abs(hj - h64), (h32, hj, h64)
-    # the float32 run is the float32 library solve
-    angles = np.linspace(0.0, 2.0 * np.pi, 2, endpoint=False)
-    res = batched.solve_fictdom_family(
-        32, 1, np.linspace(0.25, 0.42, 2),
-        0.5 + 0.02 * np.stack([np.cos(angles), np.sin(angles)], axis=1),
-        device="cpu", dtype=torch.float32)
-    assert res.iterations.tolist() == f32["iterations"]
-
-
-# ---------------------------------------------------------------------------
 # Where the JAX package ignores an option, the port raises
 # ---------------------------------------------------------------------------
 
@@ -544,16 +366,3 @@ def test_mg_option_departures_raise(kw):
     or fails later)."""
     with pytest.raises(ValueError):
         fs.solve_fictdom_structured(8, 1, device="cpu", **kw)
-
-
-def test_deflation_without_cut_cells_is_a_no_op():
-    """mg_deflate on a mesh without cut cells (a circle of radius 2 holds
-    the whole square) deflates nothing: the same iterations and local
-    dofs as without it, as in the JAX package."""
-    problem = fs.default_problem(2.0)
-    a = fs.solve_fictdom_structured(16, 1, problem, device="cpu")
-    b = fs.solve_fictdom_structured(16, 1, problem, device="cpu",
-                                    mg_deflate=4)
-    assert a.iterations == b.iterations
-    assert torch.equal(a.local, b.local)
-    assert "deflate_setup_s" not in b.timings

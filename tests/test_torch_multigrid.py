@@ -1,17 +1,20 @@
 """The port's multigrid V-cycle against proton_tpu on the CPU, float64:
-the transfer matrices, prolongation and restriction (and their adjoint
-identity), the Chebyshev smoother, the coarsest factor, and one V-cycle
-apply over the JAX package's own 16^2 and 8^2 levels, in the lean and in
-the full form.
+the Chebyshev smoother and its eigenvalue estimate, the damped smoothers,
+and one V-cycle apply over the JAX package's own 16^2 and 8^2 levels, in
+the lean and in the full form, and the solves with the damped smoothers.
+The transfer matrices, prolongation and restriction and the coarsest
+factor are in tests/test_torch_multigrid_transfers.py.
 
 The JAX package's transfer-matrix builders are pure functions of (hdi, h)
-that its eager multigrid setup calls again for every hierarchy; this
-module memoizes them (the same arrays, computed once), and runs the BLAS
-and torch thread pools single-threaded."""
-
-import functools
+that its multigrid setup calls again for every hierarchy; this module
+hands it the port's (tests/torch_jax_reference.py), which
+test_torch_multigrid_transfers.py holds to the JAX package's own to
+1e-12. Each JAX V-cycle is built and applied under one jax.jit, and the
+JAX solves run its _solve_jit over levels built once. The BLAS and torch
+thread pools run single-threaded."""
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import threadpoolctl
@@ -26,6 +29,7 @@ from proton_tpu_torch.core.ops import HHODegreeInfo
 from proton_tpu_torch.cut import fictdom_structured as fs
 from proton_tpu_torch.methods import cells_last, structured
 from proton_tpu_torch.solvers import cg, multigrid
+from torch_jax_reference import jax_solve, jax_transfer_builders
 
 CPU = torch.device("cpu")
 F64 = torch.float64
@@ -47,129 +51,45 @@ def _dot(a, b):
     return float(torch.sum(a.H * b.H) + torch.sum(a.V * b.V))
 
 
-def _systems(nf, nc, fbs):
-    return (structured.make_structured_system(nf, nf, fbs, device=CPU),
-            structured.make_structured_system(nc, nc, fbs, device=CPU))
-
-
 @pytest.fixture(autouse=True, scope="module")
-def _memoized_jax_transfers_one_thread():
-    """Memoize the JAX package's _transfer_face_projectors, _unit_recmap
-    and _transfer_slot_matrices for this module (build_multigrid looks
-    them up as module globals), and keep BLAS and torch on one thread:
-    with a pool per core in every test worker, a dense eigh of a few
-    hundred rows takes seconds instead of milliseconds."""
+def _port_transfers_one_thread():
+    """Hand the JAX package the port's _transfer_face_projectors,
+    _unit_recmap and _transfer_slot_matrices for this module
+    (build_multigrid looks them up as module globals), and keep BLAS and
+    torch on one thread: with a pool per core in every test worker, a
+    dense eigh of a few hundred rows takes seconds instead of
+    milliseconds."""
     with pytest.MonkeyPatch.context() as mp, \
             threadpoolctl.threadpool_limits(1):
-        for name in ("_transfer_face_projectors", "_unit_recmap",
-                     "_transfer_slot_matrices"):
-            mp.setattr(jmg, name,
-                       functools.lru_cache(maxsize=None)(getattr(jmg, name)))
+        jax_transfer_builders(mp)
         threads = torch.get_num_threads()
         torch.set_num_threads(1)
         yield
         torch.set_num_threads(threads)
 
 
-def _jax_mats(k):
-    """The JAX package's transfer matrices of the coarse cell of side
-    1/8 (memoized by the fixture above)."""
-    return jmg._transfer_slot_matrices(JHHODegreeInfo(k + 1, k), 0.125,
-                                       jnp.float64)
-
-
-@pytest.mark.parametrize("k", [1, 2])
-def test_transfer_slot_matrices_match(k):
-    """The 12 transfer matrices of the coarse cell of side 1/8, and the
-    two halves they are made of, 1e-12."""
-    jhdi, hdi = JHHODegreeInfo(k + 1, k), HHODegreeInfo(k + 1, k)
-    for a, b in zip(multigrid._transfer_face_projectors(hdi, 0.125,
-                                                        device=CPU),
-                    jmg._transfer_face_projectors(jhdi, 0.125)):
-        _close(a, b)
-    _close(multigrid._unit_recmap(hdi, 0.125, device=CPU),
-           jmg._unit_recmap(jhdi, 0.125))
-    for a, b in zip(multigrid._transfer_slot_matrices(hdi, 0.125, F64,
-                                                      device=CPU),
-                    _jax_mats(k)):
-        _close(a, b)
-
-
-@pytest.mark.parametrize("k", [1, 2])
-def test_prolongation_and_restriction_match(k):
-    """Port against JAX on random grids, 16^2 <- 8^2, 1e-12. The port
-    computes its own transfer matrices; the JAX side is handed the ones
-    test_transfer_slot_matrices_match compares them with."""
-    fbs = k + 1
-    jhdi, hdi = JHHODegreeInfo(k + 1, k), HHODegreeInfo(k + 1, k)
-    jf, jc = (jstructured.make_structured_system(n, n, fbs) for n in (16, 8))
-    sf, sc = _systems(16, 8, fbs)
-    rng = np.random.default_rng(k)
-    jxc, jrf = _grid(rng, fbs, 8), _grid(rng, fbs, 16)
-    jp = jmg.make_reconstruction_prolongation_cl(
-        jf, jc, jhdi, 0.125, jnp.float64, mats=_jax_mats(k))(jxc)
-    p = multigrid.make_reconstruction_prolongation_cl(sf, sc, hdi, 0.125)(
-        convert.grid_vec_cl(jxc, CPU))
-    jr = jmg.make_reconstruction_restriction_cl(
-        jf, jc, jhdi, 0.125, jnp.float64, mats=_jax_mats(k))(jrf)
-    r = multigrid.make_reconstruction_restriction_cl(sf, sc, hdi, 0.125)(
-        convert.grid_vec_cl(jrf, CPU))
-    for a, b in zip(p + r, jp + jr):
-        _close(a, b)
-
-
-@pytest.mark.parametrize("k", [0, 1, 2])
-def test_restriction_is_the_adjoint_of_prolongation(k):
-    """<P u, v> = <u, R v> to 1e-12 relative, on a 12^2 <- 6^2 pair with
-    nonzero values on the frozen faces too."""
-    fbs = k + 1
-    hdi = HHODegreeInfo(k + 1, k)
-    sf, sc = _systems(12, 6, fbs)
-    rng = np.random.default_rng(20 + k)
-    u = convert.grid_vec_cl(_grid(rng, fbs, 6), CPU)
-    v = convert.grid_vec_cl(_grid(rng, fbs, 12), CPU)
-    P = multigrid.make_reconstruction_prolongation_cl(sf, sc, hdi, 1.0 / 6)
-    R = multigrid.make_reconstruction_restriction_cl(sf, sc, hdi, 1.0 / 6)
-    lhs, rhs = _dot(P(u), v), _dot(u, R(v))
-    assert abs(lhs - rhs) <= 1e-12 * abs(lhs)
-
-
-def test_mg_sizes_expand_ring_and_coarse_factor_match():
-    assert multigrid._mg_sizes(1024, 8) == jmg._mg_sizes(1024, 8) == \
-        [1024, 512, 256, 128, 64, 32, 16, 8]
-    assert multigrid._mg_sizes(24, 8) == jmg._mg_sizes(24, 8)
-    ids = np.array([0, 7, 27, 63])
-    for ring in (0, 1, 2):
-        assert np.array_equal(fs.expand_ring(ids, 8, ring),
-                              jfs.expand_ring(ids, 8, ring))
-    # a singular symmetric matrix: the pseudo-inverse drops its kernel
-    rng = np.random.default_rng(3)
-    B = rng.standard_normal((12, 9))
-    A = B @ B.T
-    rhs = A @ rng.standard_normal(12)
-    x = multigrid._coarse_solve(multigrid._coarse_factor(torch.as_tensor(A)),
-                                torch.as_tensor(rhs))
-    _close(x, jmg._coarse_solve(jmg._coarse_factor(jnp.asarray(A)),
-                                jnp.asarray(rhs)), 1e-10)
-    _close(x, np.linalg.pinv(A) @ rhs, 1e-10)
-
-
 @pytest.fixture(scope="module")
 def jax_levels():
     """The JAX package's own levels at 16^2 and 8^2, k=1, in the lean and
-    the full form (no right-hand sides: the V-cycle needs none)."""
+    the full form, as its solve_fictdom_structured builds them: the full
+    16^2 one with its right-hand side (the V-cycle reads none; the full
+    solve of test_damped_smoother_solves_match_jax does)."""
     hdi, problem = JHHODegreeInfo(2, 1), jfs.default_problem()
     eta = jfs.nitsche_eta(1)
-    return {(fitted, n): jfs.build_level(n, hdi, problem, eta, 4, False,
-                                         False, with_rhs=False,
-                                         fitted=fitted)
-            for fitted in ("lean", "full") for n in (16, 8)}
+    return {(fitted, n): jfs.build_level(
+        n, hdi, problem, eta, 4, False, False,
+        with_rhs=(fitted, n) == ("full", 16), fitted=fitted)
+        for fitted in ("lean", "full") for n in (16, 8)}
 
 
 def _mg_pair(jax_levels, fitted, smoother="chebyshev"):
-    """(JAX Multigrid, port Multigrid) over the 16^2 and 8^2 levels, with
+    """(JAX V-cycle, port Multigrid) over the 16^2 and 8^2 levels, with
     solve_fictdom_structured's defaults (one sweep of ``smoother``, the
-    patch smoother on the cut cells grown by one ring)."""
+    patch smoother on the cut cells grown by one ring). The JAX side is
+    one jitted function of a residual r: its build_multigrid, then (each
+    smoother step of the fine level applied to r, the V-cycle applied to
+    r); it records the hierarchy's number of levels and of fine smoother
+    steps in its ``shape`` attribute."""
     jhdi, hdi = JHHODegreeInfo(2, 1), HHODegreeInfo(2, 1)
     levs = {n: jax_levels[(fitted, n)] for n in (16, 8)}
     lean = fitted == "lean"
@@ -177,15 +97,26 @@ def _mg_pair(jax_levels, fitted, smoother="chebyshev"):
     cuts = {n: jfs.expand_ring(lev.cut_ids, n, 1) for n, lev in levs.items()}
     uni = {n: (lev.S_u, lev.irr_ids) for n, lev in levs.items()} \
         if lean else None
-    jm = jmg.build_multigrid(16, 2, S, hdi=jhdi, coarsest=8, n_smooth=1,
-                             cut_ids_per_level=cuts, smoother=smoother,
-                             layout="cl", uniform_per_level=uni)
+
+    def jax_apply(S, r):
+        jm = jmg.build_multigrid(16, 2, S, hdi=jhdi, coarsest=8, n_smooth=1,
+                                 cut_ids_per_level=cuts, smoother=smoother,
+                                 layout="cl", uniform_per_level=uni)
+        apply.shape = (len(jm.levels), len(jm.levels[0].smoothers))
+        return [step(r) for step in jm.levels[0].smoothers], \
+            jm.precondition(r)
+
+    jitted = jax.jit(jax_apply)
+
+    def apply(r):
+        return jitted(S, r)
+
     m = multigrid.build_multigrid(
         16, 2, hdi=hdi, coarsest=8, n_smooth=1, smoother=smoother,
         **convert.mg_levels(
             {n: (np.asarray(S[n]), levs[n].S_u, levs[n].irr_ids, cuts[n])
              for n in levs}, CPU))
-    return jm, m
+    return apply, m
 
 
 @pytest.mark.parametrize("fitted", ["lean", "full"])
@@ -196,16 +127,16 @@ def test_vcycle_matches_and_is_symmetric(jax_levels, fitted):
     <M r, s> = <r, M s> to 1e-10; and, on the way, the Chebyshev smoother
     of the fine level, 1e-11."""
     jm, m = _mg_pair(jax_levels, fitted)
-    assert len(m.levels) == len(jm.levels) == 2
-    assert len(m.levels[0].smoothers) == len(jm.levels[0].smoothers) == 2
     rng = np.random.default_rng(7)
     jr, js = _grid(rng, 2, 16), _grid(rng, 2, 16)
     r, s = convert.grid_vec_cl(jr, CPU), convert.grid_vec_cl(js, CPU)
-    for step, jstep in zip(m.levels[0].smoothers, jm.levels[0].smoothers):
-        for a, b in zip(step(r), jstep(jr)):
+    jsteps, jMr = jm(jr)
+    assert (len(m.levels), len(m.levels[0].smoothers)) == jm.shape == (2, 2)
+    for step, jz in zip(m.levels[0].smoothers, jsteps):
+        for a, b in zip(step(r), jz):
             _close(a, b, 1e-11)
     Mr, Ms = m.precondition(r), m.precondition(s)
-    for a, b in zip(Mr, jm.precondition(jr)):
+    for a, b in zip(Mr, jMr):
         _close(a, b, 1e-10)
     lhs, rhs = _dot(Mr, s), _dot(r, Ms)
     assert abs(lhs - rhs) <= 1e-10 * abs(lhs)
@@ -293,11 +224,13 @@ def test_damped_smoother_vcycle_matches(jax_levels, smoother):
     rng = np.random.default_rng(13)
     jr, js = _grid(rng, 2, 16), _grid(rng, 2, 16)
     r, s = convert.grid_vec_cl(jr, CPU), convert.grid_vec_cl(js, CPU)
-    for step, jstep in zip(m.levels[0].smoothers, jm.levels[0].smoothers):
-        for a, b in zip(step(r), jstep(jr)):
+    jsteps, jMr = jm(jr)
+    assert len(m.levels[0].smoothers) == jm.shape[1]
+    for step, jz in zip(m.levels[0].smoothers, jsteps):
+        for a, b in zip(step(r), jz):
             _close(a, b, 1e-11)
     Mr, Ms = m.precondition(r), m.precondition(s)
-    for a, b in zip(Mr, jm.precondition(jr)):
+    for a, b in zip(Mr, jMr):
         _close(a, b, 1e-10)
     lhs, rhs = _dot(Mr, s), _dot(r, Ms)
     assert abs(lhs - rhs) <= 1e-10 * abs(lhs)
@@ -313,13 +246,14 @@ def test_lean_jacobi_smoother_repairs_jax(jax_levels):
     jhdi = JHHODegreeInfo(2, 1)
     levs = {n: jax_levels[("lean", n)] for n in (16, 8)}
     cuts = {n: jfs.expand_ring(lev.cut_ids, n, 1) for n, lev in levs.items()}
+    jr = _grid(np.random.default_rng(17), 2, 16)
     with pytest.raises(TypeError, match="reshape"):
-        jmg.build_multigrid(
-            16, 2, {n: lev.cond.dS for n, lev in levs.items()}, hdi=jhdi,
-            coarsest=8, n_smooth=1, cut_ids_per_level=cuts,
-            smoother="jacobi", layout="cl",
+        jax.jit(lambda S, r: jmg.build_multigrid(
+            16, 2, S, hdi=jhdi, coarsest=8, n_smooth=1,
+            cut_ids_per_level=cuts, smoother="jacobi", layout="cl",
             uniform_per_level={n: (lev.S_u, lev.irr_ids)
-                               for n, lev in levs.items()})
+                               for n, lev in levs.items()}).precondition(r)
+        )({n: lev.cond.dS for n, lev in levs.items()}, jr)
 
     full = {n: np.repeat(np.asarray(lev.S_u).reshape(-1, 1), n * n, axis=1)
             for n, lev in levs.items()}
@@ -333,18 +267,16 @@ def test_lean_jacobi_smoother_repairs_jax(jax_levels):
                             sys_, torch.as_tensor(full[n]))):
             _close(a, b, 1e-14)
 
-    jm = jmg.build_multigrid(16, 2, {n: jnp.asarray(S) for n, S in
-                                     full.items()}, hdi=jhdi, coarsest=8,
-                             n_smooth=1, cut_ids_per_level=cuts,
-                             smoother="jacobi", layout="cl")
+    jpre = jax.jit(lambda S, r: jmg.build_multigrid(
+        16, 2, S, hdi=jhdi, coarsest=8, n_smooth=1, cut_ids_per_level=cuts,
+        smoother="jacobi", layout="cl").precondition(r))
     m = multigrid.build_multigrid(
         16, 2, hdi=HHODegreeInfo(2, 1), coarsest=8, n_smooth=1,
         smoother="jacobi", **convert.mg_levels(
             {n: (np.asarray(lev.cond.dS), lev.S_u, lev.irr_ids, cuts[n])
              for n, lev in levs.items()}, CPU))
-    jr = _grid(np.random.default_rng(17), 2, 16)
     for a, b in zip(m.precondition(convert.grid_vec_cl(jr, CPU)),
-                    jm.precondition(jr)):
+                    jpre({n: jnp.asarray(S) for n, S in full.items()}, jr)):
         _close(a, b, 1e-10)
 
 
@@ -353,24 +285,40 @@ def _cgp(tol):
                 max_iter=50000, apply_preconditioner=True)
 
 
+def _jax_solve_levels(jax_levels, fitted):
+    """The levels the JAX package's solve_fictdom_structured(16, 1,
+    fitted=...) builds: the fine level with its right-hand side; the 8^2
+    level build_level(fitted="full") for "full", else
+    build_coarse_level's lean one (jax_levels' without drec, which only
+    mg_transfer="cut" reads)."""
+    if fitted == "full":
+        return {n: jax_levels[("full", n)] for n in (16, 8)}
+    return {16: jfs.build_level(16, JHHODegreeInfo(2, 1),
+                                jfs.default_problem(), jfs.nitsche_eta(1),
+                                4, False, False, with_rhs=True,
+                                fitted=fitted),
+            8: jax_levels[("lean", 8)]}
+
+
 @pytest.mark.parametrize("fitted,smoother", [("uniform", "block_jacobi"),
                                              ("full", "jacobi")])
-def test_damped_smoother_solves_match_jax(fitted, smoother):
+def test_damped_smoother_solves_match_jax(jax_levels, fitted, smoother):
     """solve_fictdom_structured(16, 1, mg_smoother=...) against the JAX
     solve with the same options where JAX computes it (its Jacobi
-    smoother needs full levels): iterations within 2, H1 rtol 1e-6,
-    local dofs within 1e-8, at CG tol 1e-10."""
+    smoother needs full levels; its _solve_jit over the levels it builds,
+    _jax_solve_levels): iterations within 2, H1 rtol 1e-6, local dofs
+    within 1e-8, at CG tol 1e-10."""
     r = fs.solve_fictdom_structured(16, 1, fitted=fitted,
                                     mg_smoother=smoother,
                                     cg_params=cg.CGParams(**_cgp(1e-10)),
                                     device="cpu")
-    jr = jfs.solve_fictdom_structured(16, 1, mixed=False, use_pallas=False,
-                                      fitted=fitted, mg_smoother=smoother,
-                                      cg_params=jcg.CGParams(**_cgp(1e-10)))
-    assert r.exit_reason == int(jr.exit_reason) == 0
-    assert abs(r.iterations - int(jr.iterations)) <= 2
-    assert np.isclose(r.h1_error, float(jr.h1_error), rtol=1e-6)
-    _close(r.local, jr.local, 1e-8)
+    jlocal, jiters, jexit, _, jh1 = jax_solve(
+        _jax_solve_levels(jax_levels, fitted), 1,
+        jcg.CGParams(**_cgp(1e-10)), mg_smoother=smoother)
+    assert r.exit_reason == jexit == 0
+    assert abs(r.iterations - jiters) <= 2
+    assert np.isclose(r.h1_error, jh1, rtol=1e-6)
+    _close(r.local, jlocal, 1e-8)
 
 
 def test_lean_jacobi_smoother_solve():

@@ -1,6 +1,11 @@
 """The port's condensed face-grid solve against proton_tpu on the CPU,
 float64: condensation, the structured operator and block-Jacobi on random
-data, CG, and the end-to-end fictdom gates."""
+data, CG, and the end-to-end fictdom gates.
+
+The JAX solves run its _solve_jit over the levels its
+solve_fictdom_structured builds, each level built once per module
+(tests/torch_jax_reference.py), with its transfer builders answered by
+the port's."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -8,6 +13,7 @@ import pytest
 import threadpoolctl
 import torch
 
+from proton_tpu.core.ops import HHODegreeInfo as JHHODegreeInfo
 from proton_tpu.cut import fictdom_structured as jfs
 from proton_tpu.methods import cells_last as jcl, structured as jstructured
 from proton_tpu.solvers import cg as jcg
@@ -15,6 +21,7 @@ from proton_tpu_torch import convert
 from proton_tpu_torch.cut import fictdom_structured as fs
 from proton_tpu_torch.methods import cells_last, structured
 from proton_tpu_torch.solvers import cg
+from torch_jax_reference import jax_solve, jax_transfer_builders
 
 CPU = torch.device("cpu")
 
@@ -22,8 +29,11 @@ CPU = torch.device("cpu")
 @pytest.fixture(autouse=True, scope="module")
 def _one_thread():
     """BLAS and torch on one thread: with a pool per core in every test
-    worker the cores are oversubscribed many times over."""
-    with threadpoolctl.threadpool_limits(1):
+    worker the cores are oversubscribed many times over. The JAX
+    package's transfer builders answer with the port's arrays."""
+    with threadpoolctl.threadpool_limits(1), \
+            pytest.MonkeyPatch.context() as mp:
+        jax_transfer_builders(mp)
         threads = torch.get_num_threads()
         torch.set_num_threads(1)
         yield
@@ -161,6 +171,14 @@ def _cgp(tol=1e-10):
                 max_iter=50000, apply_preconditioner=True)
 
 
+def _jax_level(N, k, fitted):
+    """The JAX package's fine level as its solve_fictdom_structured(N, k,
+    fitted=..., mixed=False) builds it."""
+    return jfs.build_level(N, JHHODegreeInfo(k + 1, k), jfs.default_problem(),
+                           jfs.nitsche_eta(k), 4, False, False,
+                           with_rhs=True, fitted=fitted)
+
+
 @pytest.mark.parametrize("N,k", [(16, 1), (16, 2)])
 def test_end_to_end_gates(N, k):
     """At CG tol 1e-10: iterations within 2 of the JAX gate and H1 within
@@ -180,12 +198,11 @@ def test_end_to_end_gates(N, k):
                                     fitted="full",
                                     cg_params=cg.CGParams(**_cgp(1e-12)),
                                     device="cpu")
-    jr = jfs.solve_fictdom_structured(N, k, precond="block_jacobi",
-                                      fitted="full", mixed=False,
-                                      use_pallas=False,
-                                      cg_params=jcg.CGParams(**_cgp(1e-12)))
-    assert r.exit_reason == int(jr.exit_reason) == cg.CONVERGED
-    diff = np.abs(r.local.numpy() - np.asarray(jr.local))
+    jlocal, _, jexit, _, jh1 = jax_solve(
+        {N: _jax_level(N, k, "full")}, k, jcg.CGParams(**_cgp(1e-12)),
+        precond="block_jacobi")
+    assert r.exit_reason == jexit == cg.CONVERGED
+    diff = np.abs(r.local.numpy() - np.asarray(jlocal))
     # The cell blocks of sliver cut cells reach cond ~6e7 at k=2 (~7e4 at
     # k=1), so their recovered cell dofs move by ~cond * eps with the
     # rounding of any Cholesky: held to 1e-7 there, 1e-8 everywhere else.
@@ -194,7 +211,7 @@ def test_end_to_end_gates(N, k):
     assert diff[cut_ids, :cbs].max() < (1e-8 if k < 2 else 1e-7)
     diff[cut_ids, :cbs] = 0.0
     assert diff.max() < 1e-8
-    assert np.isclose(r.h1_error, float(jr.h1_error), rtol=1e-6)
+    assert np.isclose(r.h1_error, jh1, rtol=1e-6)
 
 
 def test_jacobi_solve_and_unported_options():
@@ -225,14 +242,29 @@ def test_jacobi_solve_and_unported_options():
     assert np.isclose(r.h1_error, GATES[(16, 1)][1], rtol=1e-6)
 
 
+# mg_coarsest of the fitted="uniform" comparison under precond="mg": the
+# fine level alone, its V-cycle the smoothers around the coarsest factor.
+# What the test holds, the system fitted="uniform" builds, is the fine
+# level's at any depth (the multigrid hierarchy against the JAX package's:
+# tests/test_torch_multigrid.py, test_torch_lean.py); a second level costs
+# the JAX side a coarse level build and a V-cycle four times the size.
+UNIFORM_MG_COARSEST = 16
+
+
 @pytest.fixture(scope="module")
 def uniform_pair():
     """The JAX package's 16^2 k=1 solves with fitted="uniform" (its
-    default), precond "mg" and "jacobi", CG tol 1e-10."""
-    return {precond: jfs.solve_fictdom_structured(
-        16, 1, precond=precond, fitted="uniform", mixed=False,
-        use_pallas=False, cg_params=jcg.CGParams(**_cgp()))
-        for precond in ("mg", "jacobi")}
+    default), precond "mg" (mg_coarsest=UNIFORM_MG_COARSEST) and
+    "jacobi", CG tol 1e-10: (local, iterations, exit code, H1). Both
+    solve the same level, built once."""
+    fine = _jax_level(16, 1, "uniform")
+    out = {}
+    for precond, kw in (("mg", dict(mg_coarsest=UNIFORM_MG_COARSEST)),
+                        ("jacobi", {})):
+        local, iters, exit_code, _, h1 = jax_solve(
+            {16: fine}, 1, jcg.CGParams(**_cgp()), precond=precond, **kw)
+        out[precond] = (local, iters, exit_code, h1)
+    return out
 
 
 @pytest.mark.parametrize("precond", ["mg", "jacobi"])
@@ -243,9 +275,12 @@ def test_fitted_uniform_matches_jax(uniform_pair, precond):
     iterations within 2. With precond="jacobi" the port's diagonal is the
     whole lean operator's, JAX's that of the broadcast S; fitted="lean"
     refuses Jacobi, as in the JAX package, so there the uniform solve is
-    held to the full one."""
+    held to the full one. Under precond="mg" both packages run
+    mg_coarsest=UNIFORM_MG_COARSEST."""
     kw = dict(precond=precond, cg_params=cg.CGParams(**_cgp()),
               device="cpu")
+    if precond == "mg":
+        kw.update(mg_coarsest=UNIFORM_MG_COARSEST)
     r = fs.solve_fictdom_structured(16, 1, fitted="uniform", **kw)
     if precond == "mg":
         other = fs.solve_fictdom_structured(16, 1, fitted="lean", **kw)
@@ -255,11 +290,11 @@ def test_fitted_uniform_matches_jax(uniform_pair, precond):
         other = fs.solve_fictdom_structured(16, 1, fitted="full", **kw)
         assert abs(r.iterations - other.iterations) <= 2
         _close(r.local.numpy(), other.local.numpy(), 1e-8)
-    jr = uniform_pair[precond]
-    assert r.exit_reason == int(jr.exit_reason) == cg.CONVERGED
-    assert abs(r.iterations - int(jr.iterations)) <= 2
-    assert np.isclose(r.h1_error, float(jr.h1_error), rtol=1e-6)
-    _close(r.local.numpy(), np.asarray(jr.local), 1e-8)
+    jlocal, jiters, jexit, jh1 = uniform_pair[precond]
+    assert r.exit_reason == jexit == cg.CONVERGED
+    assert abs(r.iterations - jiters) <= 2
+    assert np.isclose(r.h1_error, jh1, rtol=1e-6)
+    _close(r.local.numpy(), np.asarray(jlocal), 1e-8)
 
 
 def test_classify_level_full_equals_band():
