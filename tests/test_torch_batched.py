@@ -4,8 +4,11 @@ ellipse and flower families geometry by geometry (H1 rtol 1e-8,
 iterations within 2, equal cut counts and flags), the capacity overflow,
 the H1 error of a padded batch, the app, and the device rule.
 
-Each JAX family is one compiled program per (family, size, capacity); it
-is computed once here, in a module fixture."""
+The JAX package's families (one compiled program per family, size and
+capacity), its padded cut ids and its H1 error of a padded batch are read
+from tests/jax_refs/test_torch_batched.npz (REFS below;
+tests/torch_jax_reference.py writes it, running the JAX package alone on
+the same inputs)."""
 
 import json
 
@@ -32,6 +35,7 @@ from proton_tpu_torch.cut import fictdom_structured as fs
 from proton_tpu_torch.cut import methods as cut_methods
 from proton_tpu_torch.cut.classify import LOC_CUT
 from proton_tpu_torch.solvers import cg
+from torch_jax_reference import Refs
 
 CPU = torch.device("cpu")
 N = 16
@@ -47,6 +51,7 @@ ELLIPSES = (np.array([0.33, 0.30]), np.array([0.33, 0.22]),
 FLOWERS = (np.array([0.33, 0.32]), np.array([0.0, 0.04]),
            np.array([0.5, 0.49]), np.array([0.5, 0.51]))
 OVERFLOW_CAPACITY = 20
+REFS = Refs(__name__)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -60,27 +65,41 @@ def _one_thread():
         torch.set_num_threads(threads)
 
 
+def _jax_family(name):
+    """The JAX package's family ``name`` at 16^2 k=1, CG tol 1e-10."""
+    cgp = jcg.CGParams(**CG)
+    if name == "circle":
+        return jbatched.solve_fictdom_family(N, 1, RADII, CENTERS,
+                                             cg_params=cgp)
+    if name == "overflow":
+        return jbatched.solve_fictdom_family(
+            N, 1, RADII[1:2], CENTERS[1:2], capacity=OVERFLOW_CAPACITY,
+            cg_params=cgp)
+    params, family = ((ELLIPSES, jbatched.ellipse_family)
+                      if name == "ellipse" else
+                      (FLOWERS, jbatched.flower_family(5)))
+    return jbatched.solve_fictdom_family_params(
+        N, 1, tuple(jnp.asarray(a) for a in params), family, cg_params=cgp)
+
+
+for _name, _call in (
+        ("circle", "solve_fictdom_family(16, 1, RADII, CENTERS)"),
+        ("ellipse", "solve_fictdom_family_params(16, 1, ELLIPSES, "
+                    "ellipse_family)"),
+        ("flower", "solve_fictdom_family_params(16, 1, FLOWERS, "
+                   "flower_family(5))"),
+        ("overflow", "solve_fictdom_family(16, 1, RADII[1:2], CENTERS[1:2], "
+                     "capacity=20)")):
+    REFS.add(f"family[{_name}]", "solve", _call + ", CG tol 1e-10",
+             _jax_family, name=_name)
+
+
 @pytest.fixture(scope="module")
 def jax_families():
-    """The JAX package's families at 16^2 k=1, CG tol 1e-10, as the
+    """The JAX package's stored families at 16^2 k=1, CG tol 1e-10, as the
     port's FamilyResult."""
-    cgp = jcg.CGParams(**CG)
-
-    def host(r):
-        return convert.family_result(r, CPU)
-
-    return dict(
-        circle=host(jbatched.solve_fictdom_family(N, 1, RADII, CENTERS,
-                                                  cg_params=cgp)),
-        ellipse=host(jbatched.solve_fictdom_family_params(
-            N, 1, tuple(jnp.asarray(a) for a in ELLIPSES),
-            jbatched.ellipse_family, cg_params=cgp)),
-        flower=host(jbatched.solve_fictdom_family_params(
-            N, 1, tuple(jnp.asarray(a) for a in FLOWERS),
-            jbatched.flower_family(5), cg_params=cgp)),
-        overflow=host(jbatched.solve_fictdom_family(
-            N, 1, RADII[1:2], CENTERS[1:2], capacity=OVERFLOW_CAPACITY,
-            cg_params=cgp)))
+    return {name: convert.family_result(REFS[f"family[{name}]"], CPU)
+            for name in ("circle", "ellipse", "flower", "overflow")}
 
 
 @pytest.fixture(scope="module")
@@ -104,17 +123,23 @@ def _assert_matches(res, jres):
     assert res.n_cut_overflow.tolist() == [0] * len(res.n_cut)
 
 
+PADDED_LOC = np.array([0, LOC_CUT, 0, LOC_CUT, LOC_CUT], dtype=np.int8)
+REFS.add("padded_cut_ids", "classification",
+         "padded_cut_ids(jnp.asarray(PADDED_LOC), cap) for cap in (4, 2, 8)",
+         lambda: {cap: jbatched.padded_cut_ids(jnp.asarray(PADDED_LOC), cap)
+                  for cap in (4, 2, 8)})
+
+
 def test_padded_cut_ids():
     """The JAX package's cases, in both packages."""
-    loc = np.array([0, LOC_CUT, 0, LOC_CUT, LOC_CUT], dtype=np.int8)
+    loc = PADDED_LOC
     for cap, want_ids, want_valid, want_over in (
             (4, [1, 3, 4, 5], [True, True, True, False], 0),
             (2, [1, 3], [True, True], 1),
             (8, [1, 3, 4, 5, 5], [True, True, True, False, False], 0)):
         ids, valid, n_cut, n_over = batched.padded_cut_ids(
             torch.as_tensor(loc), cap)
-        jids, jvalid, jn_cut, jn_over = jbatched.padded_cut_ids(
-            jnp.asarray(loc), cap)
+        jids, jvalid, jn_cut, jn_over = REFS["padded_cut_ids"][cap]
         assert ids.tolist() == jids.tolist() == want_ids
         assert valid.tolist() == jvalid.tolist() == want_valid
         assert int(n_cut) == int(jn_cut) == 3
@@ -196,32 +221,55 @@ def test_capacity_overflow_matches_jax(jax_families):
     assert np.isnan(float(jres.h1_error[0]))
 
 
-def test_h1_error_cut_valid_matches_jax():
-    """fictdom_h1_error_chunked on a padded batch (the JAX family's: cut
-    ids padded to the capacity, clamped to C - 1) with cut_valid, against
-    the JAX function on the same data: rtol 1e-12; and equal to the error
-    over the unpadded batch."""
-    k, cap = 1, 60
-    hdi, jhdi = HHODegreeInfo(k + 1, k), JHHODegreeInfo(k + 1, k)
-    p, jp = fs.default_problem(0.35), jfs.default_problem(0.35)
+H1_CAPACITY = 60
+
+
+def _jax_h1_cut_valid():
+    """The JAX package's displaced classification of the 16^2 mesh (r =
+    0.35), its padded cut ids (capacity 60) and fictdom_h1_error_chunked
+    of a random local vector on the padded batch with cut_valid."""
+    k = 1
+    jhdi, jp = JHHODegreeInfo(k + 1, k), jfs.default_problem(0.35)
     jmesh = jmake_poly_mesh(Nx=N, Ny=N)
     pts, jcutdata, _, _ = j_preprocess_core(jmesh, jp.ls, 4,
                                             agglomeration=False,
                                             displacement=True)
     jmesh2 = jmesh.with_points(pts)
     jgeom = jcell_geometry(jmesh2)
-    jids, jvalid, _, _ = jbatched.padded_cut_ids(jcutdata.cell_loc, cap)
+    jids, jvalid, _, _ = jbatched.padded_cut_ids(jcutdata.cell_loc,
+                                                 H1_CAPACITY)
     jbatch = jcut_methods.make_cut_batch(jmesh2, jgeom, jcutdata,
                                          jnp.minimum(jids, N * N - 1))
+    local = np.random.default_rng(5).standard_normal((N * N, 14))
+    return dict(mesh=jmesh2, cutdata=jcutdata, ids=jids,
+                h1=jfs.fictdom_h1_error_chunked(
+                    jmesh2, jgeom, jbatch, jcutdata.cell_loc, jhdi,
+                    jnp.asarray(local), jp.sol_grad, cut_valid=jvalid))
+
+
+REFS.add("h1_cut_valid", "h1",
+         "_preprocess_core(make_poly_mesh(16, 16), circle r=0.35, 4, "
+         "displacement=True); padded_cut_ids(cell_loc, 60); "
+         "fictdom_h1_error_chunked(..., random local, cut_valid=valid)",
+         _jax_h1_cut_valid, seed=5)
+
+
+def test_h1_error_cut_valid_matches_jax():
+    """fictdom_h1_error_chunked on a padded batch (the JAX family's: cut
+    ids padded to the capacity, clamped to C - 1) with cut_valid, against
+    the JAX function on the same data: rtol 1e-12; and equal to the error
+    over the unpadded batch."""
+    k, cap = 1, H1_CAPACITY
+    hdi = HHODegreeInfo(k + 1, k)
+    p = fs.default_problem(0.35)
+    ref = REFS["h1_cut_valid"]
+    jids, jh1 = ref.ids, ref.h1
     rng = np.random.default_rng(5)
     local = rng.standard_normal((N * N, 14))
-    jh1 = float(jfs.fictdom_h1_error_chunked(
-        jmesh2, jgeom, jbatch, jcutdata.cell_loc, jhdi, jnp.asarray(local),
-        jp.sol_grad, cut_valid=jvalid))
 
-    mesh = convert.mesh(jmesh2, CPU)
+    mesh = convert.mesh(ref.mesh, CPU)
     geom = cell_geometry(mesh)
-    cutdata = convert.cut_data(jcutdata, CPU)
+    cutdata = convert.cut_data(ref.cutdata, CPU)
     ids, valid, n_cut, _ = batched.padded_cut_ids(cutdata.cell_loc, cap)
     assert ids.tolist() == np.asarray(jids).tolist()
     padded = cut_methods.make_cut_batch(mesh, geom, cutdata,

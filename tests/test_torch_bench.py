@@ -3,7 +3,10 @@ its line against the JAX package at 32^2 k=1, its timed assembly
 against the fully assembled level, its keys against the JAX bench's
 (read from bench.py without importing it), the stock form's two lines, a
 failed k=2 run, the knobs that reach the library solve, the line of each
-precision mode, the knobs that are not ported, and the device rule."""
+precision mode, the knobs that are not ported, and the device rule. The
+JAX package's classification and dofmap counts at 32^2 are read from
+tests/jax_refs/test_torch_bench.npz (REFS below;
+tests/torch_jax_reference.py writes it)."""
 
 import ast
 import inspect
@@ -25,6 +28,7 @@ from proton_tpu_torch import bench
 from proton_tpu_torch.core.ops import HHODegreeInfo
 from proton_tpu_torch.cut import fictdom_structured as fs
 from proton_tpu_torch.solvers import cg
+from torch_jax_reference import Refs
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -34,6 +38,21 @@ ROOT = Path(__file__).resolve().parent.parent
 # tests/test_torch_lean.py's MG_GATES[(32, 1)] and chip_smoke.py's
 # MG_GATES[32] (a live JAX solve here costs a minute of tracing).
 JAX_32 = (15, 1.134476548999272e-3)
+REFS = Refs(__name__)
+
+
+def _jax_counts_32():
+    """The JAX package's cell and cut-cell counts of its 32^2
+    classification, and its build_dofmap_structured(32, k=1) sizes."""
+    jmesh, _, jcut = jfs.classify_level(32, jfs.default_problem(), 4)
+    jdm = jassembly.build_dofmap_structured(32, JHHODegreeInfo(2, 1))
+    return dict(cells=jmesh.num_cells, cut_cells=len(jcut),
+                n_dofs=jdm.n_dofs, n_cells=jdm.n_cells, cbs=jdm.cbs)
+
+
+REFS.add("counts_32", "classification",
+         "classify_level(32, default_problem(), 4) and "
+         "build_dofmap_structured(32, HHODegreeInfo(2, 1))", _jax_counts_32)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -80,12 +99,11 @@ def test_bench_matches_jax_at_32(run32):
     2 and H1 within rtol 1e-6 of its lean + MG solve; local dofs equal to
     the port's solve_fictdom_structured at the same tolerance to 1e-12."""
     result, local, _ = run32
-    jmesh, _, jcut = jfs.classify_level(32, jfs.default_problem(), 4)
-    jdm = jassembly.build_dofmap_structured(32, JHHODegreeInfo(2, 1))
-    assert result["cells"] == int(jmesh.num_cells) == 32 * 32
-    assert result["cut_cells"] == len(jcut)
-    assert result["dofs"] == jdm.n_dofs
-    assert result["condensed_dofs"] == jdm.n_dofs - jdm.n_cells * jdm.cbs
+    jax = REFS["counts_32"]
+    assert result["cells"] == int(jax.cells) == 32 * 32
+    assert result["cut_cells"] == jax.cut_cells
+    assert result["dofs"] == jax.n_dofs
+    assert result["condensed_dofs"] == jax.n_dofs - jax.n_cells * jax.cbs
     assert result["cg_exit"] == cg.CONVERGED
     assert result["cg_rel_residual"] < 1e-10
     assert abs(result["cg_iters"] - JAX_32[0]) <= 2

@@ -1,5 +1,9 @@
 """proton_tpu_torch.core against proton_tpu.core on the CPU, float64:
-bases, quadrature tables, the generated mesh and the cell geometry."""
+bases, quadrature tables, the generated mesh and the cell geometry.
+
+The JAX package's quadrature rules and cell geometry on random points are
+read from tests/jax_refs/test_torch_core.npz (REFS below;
+tests/torch_jax_reference.py writes it on the same seeded inputs)."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -13,8 +17,10 @@ from proton_tpu.core import bases as jbases, geometry as jgeometry, \
 from proton_tpu_torch import convert
 from proton_tpu_torch.core import bases, geometry, quadrature
 from proton_tpu_torch.core.mesh import make_poly_mesh, make_quad_mesh
+from torch_jax_reference import Refs
 
 CPU = torch.device("cpu")
+REFS = Refs(__name__)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -63,26 +69,47 @@ def test_quadrature_tables_match(degree):
             np.testing.assert_array_equal(a, b)
 
 
-def test_device_rules_match():
-    """Quad, triangle and face rules on random geometry, 1e-14."""
+def _rule_points():
     rng = np.random.default_rng(0)
     base = np.array([[0, 0], [1, 0], [1, 1], [0, 1]], float)
-    p4 = base[None] + rng.uniform(-0.2, 0.2, (6, 4, 2))
+    return base[None] + rng.uniform(-0.2, 0.2, (6, 4, 2))
+
+
+def _jax_rules():
+    """The JAX package's quad cell, triangle and face rules of degrees 2,
+    4, 6 on random quads."""
+    p4 = _rule_points()
+    return {deg: dict(
+        quad=jquad.quad_cell_rule(jnp.asarray(p4), deg),
+        triangle=jquad.triangle_rule(*(jnp.asarray(p4[:, i])
+                                       for i in range(3)), deg),
+        face=jquad.face_rule(jnp.asarray(p4[:, 0]), jnp.asarray(p4[:, 1]),
+                             deg)) for deg in (2, 4, 6)}
+
+
+REFS.add("rules", "quadrature",
+         "quad_cell_rule, triangle_rule and face_rule of degrees 2, 4, 6 on "
+         "6 random quads", _jax_rules, seed=0)
+
+
+def test_device_rules_match():
+    """Quad, triangle and face rules on random geometry, 1e-14."""
+    p4 = _rule_points()
+    rules = REFS["rules"]
     for deg in (2, 4, 6):
         r = quadrature.quad_cell_rule(torch.as_tensor(p4), deg)
-        j = jquad.quad_cell_rule(jnp.asarray(p4), deg)
+        j = rules[deg].quad
         np.testing.assert_allclose(r.pts.numpy(), np.asarray(j.pts),
                                    rtol=1e-14, atol=1e-14)
         np.testing.assert_allclose(r.w.numpy(), np.asarray(j.w),
                                    rtol=1e-14, atol=1e-14)
         r = quadrature.triangle_rule(*(torch.as_tensor(p4[:, i])
                                        for i in range(3)), deg)
-        j = jquad.triangle_rule(*(jnp.asarray(p4[:, i]) for i in range(3)),
-                                deg)
+        j = rules[deg].triangle
         np.testing.assert_allclose(r.w.numpy(), np.asarray(j.w), rtol=1e-14)
         r = quadrature.face_rule(torch.as_tensor(p4[:, 0]),
                                  torch.as_tensor(p4[:, 1]), deg)
-        j = jquad.face_rule(jnp.asarray(p4[:, 0]), jnp.asarray(p4[:, 1]), deg)
+        j = rules[deg].face
         np.testing.assert_allclose(r.pts.numpy(), np.asarray(j.pts),
                                    rtol=1e-14, atol=1e-14)
         np.testing.assert_allclose(r.w.numpy(), np.asarray(j.w), rtol=1e-14)
@@ -103,14 +130,23 @@ def test_mesh_arrays_exact(kind, nx, ny):
     assert tm.face_bnd.dtype == torch.int8
 
 
-def test_cell_geometry_matches():
-    """cell_geometry on a jittered 8x8 mesh, from identical points, 1e-14."""
+def _jittered_mesh():
+    """The JAX package's 8x8 mesh with its points jittered."""
     jm = pt.make_poly_mesh(Nx=8, Ny=8)
     rng = np.random.default_rng(1)
     pts = np.asarray(jm.points) + rng.uniform(-0.02, 0.02, (81, 2))
-    jm = jm.with_points(jnp.asarray(pts))
-    tm = convert.mesh(jm, CPU)
-    jg = jgeometry.cell_geometry(jm)
+    return jm.with_points(jnp.asarray(pts))
+
+
+REFS.add("cell_geometry", "geometry",
+         "cell_geometry(make_poly_mesh(8, 8) with points jittered)",
+         lambda: jgeometry.cell_geometry(_jittered_mesh()), seed=1)
+
+
+def test_cell_geometry_matches():
+    """cell_geometry on a jittered 8x8 mesh, from identical points, 1e-14."""
+    tm = convert.mesh(_jittered_mesh(), CPU)
+    jg = REFS["cell_geometry"]
     tg = geometry.cell_geometry(tm)
     for a, b in zip(tg, jg):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-14,

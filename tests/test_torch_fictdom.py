@@ -2,10 +2,15 @@
 float64: the level sets, the three branches of cut_preprocess (and the
 generic classification against the band one), make_test_points, the
 fictitious-domain local operators, loads, solve, H1 error and fields,
-and the cuthho_square app. The JAX package's fictdom solves run once per
-module with their per-cell stages under jax.jit."""
+and the cuthho_square app. The JAX package's side (its level sets, its
+classifications, its fictdom solves, stages and fields, each with its
+per-cell stages under jax.jit) is read from
+tests/jax_refs/test_torch_fictdom.npz (REFS below;
+tests/torch_jax_reference.py writes it, running the JAX package alone on
+the same inputs)."""
 
 import contextlib
+import functools
 import io
 import sys
 
@@ -31,11 +36,13 @@ from proton_tpu_torch.cut import classify, fictdom, levelset, methods
 from proton_tpu_torch.cut.fictdom_structured import default_problem
 from proton_tpu_torch.cut.quadrature import make_test_points
 from proton_tpu_torch.solvers import cg
+from torch_jax_reference import Refs
 
 CPU = torch.device("cpu")
 PI = np.pi
 CUTDATA_FIELDS = ("node_loc", "face_loc", "face_node_inside", "cell_loc",
                   "agglo_set", "distorted")
+REFS = Refs(__name__)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -71,60 +78,113 @@ def _rel(a, b):
     return float(np.max(np.abs(a - b)) / np.max(np.abs(b)))
 
 
-@pytest.fixture(scope="module")
-def refs():
-    """N -> the JAX package's classified N^2 mesh, cut data and
-    solve_fictdom result (k=1, check_coercivity) for N = 8, 16. Its
-    stages, and those of fictdom_fields, run under jax.jit for the whole
-    module."""
+@contextlib.contextmanager
+def _jitted_stages():
+    """The JAX package's per-cell stages of solve_fictdom and
+    fictdom_fields under jax.jit (eager, each primitive compiles anew)."""
     from proton_tpu.core import bases as jbases, quadrature as jcore_quad
     from proton_tpu.methods import hho as jhho
 
+    with pytest.MonkeyPatch.context() as mp:
+        for mod, name, static in (
+                (jfictdom, "assemble_fictdom_local", (3, 4, 5, 6, 7)),
+                (jfictdom, "assemble_fictdom_rhs", (3, 4, 5, 6, 8)),
+                (jfictdom, "fictdom_h1_error", (4, 6, 7)),
+                (jfictdom, "make_cut_batch", ()),
+                (jmethods, "check_eigs", (1, 2, 3)),
+                (jassembly, "dirichlet_face_data", (1, 2)),
+                (jassembly, "local_dirichlet_data", ()),
+                (jassembly, "assemble_rhs", ()),
+                (jassembly, "operator_diagonal", ()),
+                (jassembly, "take_local_data", ()),
+                (jhho, "hho_laplacian", (2,)),
+                (jbases, "eval_cell_basis", (3,)),
+                (jcore_quad, "cell_rule", (2,))):
+            mp.setattr(mod, name, jax.jit(getattr(mod, name),
+                                          static_argnums=static))
+        yield
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_solve(N):
+    """The JAX package's classified N^2 mesh, cut data and solve_fictdom
+    result (k=1, check_coercivity)."""
     rhs, sol, grad = _jax_problem()
-    mp = pytest.MonkeyPatch()
-    for mod, name, static in (
-            (jfictdom, "assemble_fictdom_local", (3, 4, 5, 6, 7)),
-            (jfictdom, "assemble_fictdom_rhs", (3, 4, 5, 6, 8)),
-            (jfictdom, "fictdom_h1_error", (4, 6, 7)),
-            (jfictdom, "make_cut_batch", ()),
-            (jmethods, "check_eigs", (1, 2, 3)),
-            (jassembly, "dirichlet_face_data", (1, 2)),
-            (jassembly, "local_dirichlet_data", ()),
-            (jassembly, "assemble_rhs", ()),
-            (jassembly, "operator_diagonal", ()),
-            (jassembly, "take_local_data", ()),
-            (jhho, "hho_laplacian", (2,)),
-            (jbases, "eval_cell_basis", (3,)),
-            (jcore_quad, "cell_rule", (2,))):
-        mp.setattr(mod, name, jax.jit(getattr(mod, name),
-                                      static_argnums=static))
-    out = {}
-    for N in (8, 16):
-        jmesh, jcd = jclassify.cut_preprocess(pt.make_poly_mesh(Nx=N, Ny=N),
-                                              JLS, levels=4)
+    jmesh, jcd = jclassify.cut_preprocess(pt.make_poly_mesh(Nx=N, Ny=N),
+                                          JLS, levels=4)
+    with _jitted_stages():
         res = jfictdom.solve_fictdom(jmesh, jcd, JLS, 1, rhs, sol, grad,
                                      check_coercivity=True)
-        out[N] = (jmesh, jcd, res)
-    yield out
-    mp.undo()
+    return jmesh, jcd, res
+
+
+for _N in (8, 16):
+    REFS.add(f"solve[{_N}]", "solve",
+             f"cut_preprocess(make_poly_mesh({_N}, {_N}), circle 0.35, "
+             f"levels=4); solve_fictdom(mesh, cd, ls, 1, rhs, sol, grad, "
+             f"check_coercivity=True)", _jax_solve, N=_N)
+
+
+@pytest.fixture(scope="module")
+def refs():
+    """N -> the JAX package's stored classified N^2 mesh, cut data and
+    solve_fictdom result (k=1, check_coercivity) for N = 8, 16."""
+    return {N: tuple(REFS[f"solve[{N}]"]) for N in (8, 16)}
+
+
+def _levelset_points():
+    return np.random.default_rng(2).uniform(0.05, 0.95, (7, 3, 2))
+
+
+def _jax_levelsets():
+    """Values, gradients and normals of the JAX package's line, ellipse
+    and flower level sets at random points, under jax.jit."""
+    jp = jnp.asarray(_levelset_points())
+    return [jax.jit(lambda p: (jls(p), jls.gradient(p), jls.normal(p)))(jp)
+            for jls in (jlevelset.line_level_set(0.41),
+                        jlevelset.ellipse_level_set(0.3, 0.2, 0.5, 0.45),
+                        jlevelset.flower_level_set(0.3, 0.06, 5, 0.5, 0.5))]
+
+
+REFS.add("levelsets", "levelset",
+         "line_level_set(0.41), ellipse_level_set(0.3, 0.2, 0.5, 0.45), "
+         "flower_level_set(0.3, 0.06, 5, 0.5, 0.5): value, gradient, "
+         "normal at 21 random points", _jax_levelsets, seed=2)
 
 
 def test_levelsets_match():
     """line, ellipse and flower level sets: values, gradients and normals
     equal to the JAX package's (1e-13; the flower's gradient comes from
     autodiff in both)."""
-    pts = np.random.default_rng(2).uniform(0.05, 0.95, (7, 3, 2))
-    pairs = ((levelset.line_level_set(0.41), jlevelset.line_level_set(0.41)),
-             (levelset.ellipse_level_set(0.3, 0.2, 0.5, 0.45),
-              jlevelset.ellipse_level_set(0.3, 0.2, 0.5, 0.45)),
-             (levelset.flower_level_set(0.3, 0.06, 5, 0.5, 0.5),
-              jlevelset.flower_level_set(0.3, 0.06, 5, 0.5, 0.5)))
-    tp, jp = torch.as_tensor(pts), jnp.asarray(pts)
-    for ls, jls in pairs:
-        want = jax.jit(lambda p: (jls(p), jls.gradient(p), jls.normal(p)))(jp)
+    pts = _levelset_points()
+    tp = torch.as_tensor(pts)
+    for ls, want in zip((levelset.line_level_set(0.41),
+                         levelset.ellipse_level_set(0.3, 0.2, 0.5, 0.45),
+                         levelset.flower_level_set(0.3, 0.06, 5, 0.5, 0.5)),
+                        REFS["levelsets"]):
         for got, ref in zip((ls(tp), ls.gradient(tp), ls.normal(tp)), want):
             np.testing.assert_allclose(got.numpy(), np.asarray(ref),
                                        rtol=1e-13, atol=1e-14)
+
+
+def _preprocess_kw(branch):
+    return dict(displacement=branch == "displacement",
+                agglomeration=branch == "agglomeration")
+
+
+def _jax_cut_preprocess(branch):
+    jmesh, jcd = jclassify.cut_preprocess(pt.make_poly_mesh(Nx=16, Ny=16),
+                                          JLS, levels=4,
+                                          **_preprocess_kw(branch))
+    return dict(points=jmesh.points, cd={
+        f: getattr(jcd, f) for f in CUTDATA_FIELDS + ("interface",)})
+
+
+for _branch in ("displacement", "agglomeration", "plain"):
+    REFS.add(f"cut_preprocess[{_branch}]", "classification",
+             f"cut_preprocess(make_poly_mesh(16, 16), circle 0.35, "
+             f"levels=4, **{_preprocess_kw(_branch)})", _jax_cut_preprocess,
+             branch=_branch)
 
 
 @pytest.mark.parametrize("branch", ["displacement", "agglomeration",
@@ -133,10 +193,9 @@ def test_cut_preprocess_matches(branch):
     """cut_preprocess on every cell of the 16^2 mesh, each branch: the
     codes equal to JAX, points and interface polylines within 1e-13.
     Only the displacement branch moves nodes."""
-    kw = dict(displacement=branch == "displacement",
-              agglomeration=branch == "agglomeration")
-    jmesh, jcd = jclassify.cut_preprocess(pt.make_poly_mesh(Nx=16, Ny=16),
-                                          JLS, levels=4, **kw)
+    kw = _preprocess_kw(branch)
+    jmesh = REFS[f"cut_preprocess[{branch}]"]
+    jcd = jmesh.cd
     mesh0 = make_poly_mesh(Nx=16, Ny=16, device=CPU)
     mesh, cd = classify.cut_preprocess(mesh0, default_problem().ls, 4, **kw)
     for f in CUTDATA_FIELDS:
@@ -207,6 +266,34 @@ def test_make_test_points_matches():
     assert jmesh.num_cells == mesh.num_cells
 
 
+def _jax_stages(k):
+    """assemble_fictdom_local, assemble_fictdom_rhs and check_eigs of the
+    JAX package on its classified 16^2 mesh at degree k, under jax.jit."""
+    jmesh, jcd, _ = _jax_solve(16)
+    ids = np.nonzero(np.asarray(jcd.cell_loc) == jclassify.LOC_CUT)[0]
+    jgeom = jcell_geometry(jmesh)
+    jhdi = JHDI(k + 1, k)
+    rhs, sol, _ = _jax_problem()
+    jbatch = jmethods.make_cut_batch(jmesh, jgeom, jcd, ids)
+    jlc, joper = jax.jit(jfictdom.assemble_fictdom_local,
+                         static_argnums=(3, 4, 5, 6, 7))(
+        jmesh, jgeom, jbatch, JLS, jhdi, rhs, sol, classify.LOC_NEG)
+    jf = jax.jit(jfictdom.assemble_fictdom_rhs,
+                 static_argnums=(3, 4, 5, 6, 8))(
+        jmesh, jgeom, jbatch, JLS, jhdi, rhs, sol, jcd.cell_loc,
+        classify.LOC_NEG)
+    jeig = jax.jit(jmethods.check_eigs, static_argnums=(1, 2, 3))(
+        jbatch, JLS, jhdi, classify.LOC_NEG)
+    return dict(lc=jlc, oper=joper, f=jf, eig=jeig)
+
+
+for _k in (0, 1):
+    REFS.add(f"stages[{_k}]", "operator",
+             f"assemble_fictdom_local, assemble_fictdom_rhs and check_eigs "
+             f"(LOC_NEG) on solve[16]'s classified mesh, HHODegreeInfo("
+             f"{_k + 1}, {_k}), under jax.jit", _jax_stages, k=_k)
+
+
 @pytest.mark.parametrize("k", [0, 1])
 def test_fictdom_stages_match(refs, k):
     """assemble_fictdom_local (lc, oper_cut), assemble_fictdom_rhs and
@@ -215,17 +302,8 @@ def test_fictdom_stages_match(refs, k):
     jmesh, jcd, _ = refs[16]
     mesh, cd = convert.mesh(jmesh, CPU), convert.cut_data(jcd, CPU)
     ids = fictdom.cut_cell_ids(cd)
-    jgeom = jcell_geometry(jmesh)
-    jbatch = jmethods.make_cut_batch(jmesh, jgeom, jcd, ids)
-    jhdi, hdi = JHDI(k + 1, k), HHODegreeInfo(k + 1, k)
-    rhs, sol, _ = _jax_problem()
-    jlc, joper = jax.jit(jfictdom.assemble_fictdom_local,
-                         static_argnums=(3, 4, 5, 6, 7))(
-        jmesh, jgeom, jbatch, JLS, jhdi, rhs, sol, classify.LOC_NEG)
-    jf = jax.jit(jfictdom.assemble_fictdom_rhs,
-                 static_argnums=(3, 4, 5, 6, 8))(
-        jmesh, jgeom, jbatch, JLS, jhdi, rhs, sol, jcd.cell_loc,
-        classify.LOC_NEG)
+    hdi = HHODegreeInfo(k + 1, k)
+    jlc, joper, jf, jeig = REFS[f"stages[{k}]"]
     p = default_problem()
     geom = cell_geometry(mesh)
     batch = methods.make_cut_batch(mesh, geom, cd, ids)
@@ -235,8 +313,6 @@ def test_fictdom_stages_match(refs, k):
     assert _rel(lc, jlc) < 1e-12
     assert _rel(oper, joper) < 1e-10
     assert _rel(f, jf) < 1e-12
-    jeig = jax.jit(jmethods.check_eigs, static_argnums=(1, 2, 3))(
-        jbatch, JLS, jhdi, classify.LOC_NEG)
     assert _rel(methods.check_eigs(batch, p.ls, hdi, classify.LOC_NEG),
                 jeig) < 1e-11
 
@@ -266,6 +342,18 @@ def test_solve_fictdom_matches(refs, N):
     assert abs(float(h1) - want.h1_error) < 1e-13 * want.h1_error
 
 
+def _jax_fields():
+    jmesh, jcd, jres = _jax_solve(8)
+    with _jitted_stages():
+        return jfictdom.fictdom_fields(jmesh, jcd, JLS, 1, jres,
+                                       _jax_problem()[1])
+
+
+REFS.add("fields", "operator",
+         "fictdom_fields(mesh, cd, ls, 1, solve[8]'s result, sol) with the "
+         "per-cell stages under jax.jit", _jax_fields)
+
+
 def test_fictdom_fields_match(refs):
     """fictdom_fields (uT, Ru, diff at a degree-5 rule) from the JAX
     result, 1e-12 relative."""
@@ -275,9 +363,7 @@ def test_fictdom_fields_match(refs):
     out = fictdom.fictdom_fields(mesh, cd, p.ls, 1,
                                  convert.fictdom_result(jres, CPU),
                                  p.sol_fun)
-    jout = jfictdom.fictdom_fields(jmesh, jcd, JLS, 1, jres,
-                                   _jax_problem()[1])
-    for a, b in zip(out, jout):
+    for a, b in zip(out, REFS["fields"]):
         assert _rel(a, b) < 1e-12
 
 

@@ -1,7 +1,11 @@
 """Kernel K1 (proton_tpu_torch/methods/fused_assembly.py) against the JAX
 package: the plain version on the CPU against poisson.assemble_local and
 the Pallas kernel in interpret mode. The CUDA kernel is held against the
-plain version on the card in tests/test_torch_cuda.py."""
+plain version on the card in tests/test_torch_cuda.py.
+
+The Pallas kernel runs live. The JAX package's assemble_local is read
+from tests/jax_refs/test_torch_fused_assembly.npz (REFS below;
+tests/torch_jax_reference.py writes it on the same meshes)."""
 
 import dataclasses
 import re
@@ -21,8 +25,10 @@ from proton_tpu_torch.core.geometry import cell_geometry
 from proton_tpu_torch.core.mesh import make_poly_mesh
 from proton_tpu_torch.core.ops import HHODegreeInfo
 from proton_tpu_torch.methods import fused_assembly as fa
+from torch_jax_reference import Refs
 
 CPU = torch.device("cpu")
+REFS = Refs(__name__)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -52,18 +58,34 @@ def _rel(a, ref):
     return float(np.max(np.abs(a - ref)) / np.max(np.abs(ref)))
 
 
+def _jax_assemble_local(k, jitter):
+    """poisson.assemble_local(..., 'naive') of the JAX package on the 8x8
+    mesh, jittered with seed k or not."""
+    jm = _jittered_mesh(8, k)[0] if jitter else pt.make_poly_mesh(Nx=8, Ny=8)
+    return poisson.assemble_local(jm, jcell_geometry(jm), JHDI(k + 1, k),
+                                  "naive")[1]
+
+
+for _k in (0, 1, 2):
+    for _jitter in (False, True):
+        REFS.add(f"assemble_local[{_k}-{_jitter}]", "operator",
+                 f"poisson.assemble_local(make_poly_mesh(8, 8)"
+                 + (f" jittered (seed {_k})" if _jitter else "")
+                 + f", cell_geometry, HHODegreeInfo({_k + 1}, {_k}), "
+                 f"'naive')", _jax_assemble_local,
+                 seed=_k if _jitter else None, k=_k, jitter=_jitter)
+
+
 @pytest.mark.parametrize("jitter", [False, True])
 @pytest.mark.parametrize("k", [0, 1, 2])
 def test_plain_matches_assemble_local(k, jitter):
     """Plain K1 == poisson.assemble_local(..., 'naive') on 8x8, 1e-12
     relative."""
     if jitter:
-        jm, tm = _jittered_mesh(8, k)
+        _, tm = _jittered_mesh(8, k)
     else:
-        jm = pt.make_poly_mesh(Nx=8, Ny=8)
         tm = make_poly_mesh(Nx=8, Ny=8, device=CPU)
-    _, ref = poisson.assemble_local(jm, jcell_geometry(jm), JHDI(k + 1, k),
-                                    "naive")
+    ref = REFS[f"assemble_local[{k}-{jitter}]"]
     lc = fa.fitted_local_operator(tm, cell_geometry(tm),
                                   HHODegreeInfo(k + 1, k))
     assert _rel(lc.numpy(), np.asarray(ref)) < 1e-12
@@ -81,11 +103,18 @@ def test_plain_matches_pallas_interpret():
     assert _rel(lc.numpy(), np.asarray(ref)) < 1e-12
 
 
+REFS.add("equal_order", "operator",
+         "poisson.assemble_local(make_quad_mesh(5, 3), cell_geometry, "
+         "HHODegreeInfo(1, 1), 'naive')",
+         lambda: poisson.assemble_local(
+             jm := pt.make_quad_mesh(Nx=5, Ny=3), jcell_geometry(jm),
+             JHDI(1, 1), "naive")[1])
+
+
 def test_equal_order_and_ragged_cell_count():
     """15 cells (no multiple of any block size) with HHODegreeInfo(1, 1)."""
     jm = pt.make_quad_mesh(Nx=5, Ny=3)
-    _, ref = poisson.assemble_local(jm, jcell_geometry(jm), JHDI(1, 1),
-                                    "naive")
+    ref = REFS["equal_order"]
     tm = convert.mesh(jm, CPU)
     lc = fa.fitted_local_operator(tm, cell_geometry(tm), HHODegreeInfo(1, 1))
     assert lc.shape == (15, 11, 11)

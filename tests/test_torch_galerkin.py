@@ -7,11 +7,14 @@ V-cycle over the Galerkin hierarchy at gamma 1 and 2, the end-to-end
 solve against the JAX package's numbers, and the exactness of the
 hierarchy against the port's own dense R A P at 16 -> 8.
 
-The JAX side is handed the port's level data, so no JAX level is built
-(an eager JAX level build costs 10-20 s on a CPU), and the port's transfer
-slot matrices: tests/test_torch_multigrid_transfers.py holds them to the
-JAX package's to 1e-12, and the JAX package's own take 5-10 s of eager
-compilation per degree on a CPU. BLAS and torch run on one thread."""
+The JAX side is handed the port's level data, so no JAX level is built.
+Its transfer slot matrices (its own, run once under jax.jit), its
+Galerkin levels with their patch setups, its Galerkin operator on random
+data and its V-cycles are read from tests/jax_refs/test_torch_galerkin.npz
+(REFS below; tests/torch_jax_reference.py writes it, with the digest of
+the port's level data it was given). The pair-operator engine (host
+NumPy in both packages) runs live on the stored slot matrices. BLAS and
+torch run on one thread."""
 
 import functools
 import types
@@ -32,10 +35,12 @@ from proton_tpu_torch.core.ops import HHODegreeInfo
 from proton_tpu_torch.cut import fictdom_structured as fs
 from proton_tpu_torch.methods import cells_last, structured
 from proton_tpu_torch.solvers import cg, multigrid
+from torch_jax_reference import Refs, jax_transfer_arrays
 
 CPU = torch.device("cpu")
 F64 = torch.float64
 CASES = [(16, 1), (32, 1), (16, 2)]
+REFS = Refs(__name__)
 
 # The JAX package on the CPU in float64, (iterations, H1) of
 # solve_fictdom_structured(N, k, mg_galerkin=True, mg_gamma=gamma,
@@ -49,19 +54,29 @@ JAX_GALERKIN = {(16, 1, 1): (11, 0.004434838976281151),
                 (32, 1, 2): (22, 0.0011344765320524402)}
 
 
-@functools.lru_cache(maxsize=None)
-def _port_slot_matrices(jhdi, h, dtype):
-    """The port's (MH, MV) for the JAX package's multigrid module."""
-    hdi = HHODegreeInfo(jhdi.cell_degree, jhdi.face_degree)
-    return tuple(jnp.asarray(m.numpy(), dtype) for m in
-                 multigrid._transfer_slot_matrices(hdi, h, F64, device=CPU))
+# (k, n) of the coarse cells of side 1/n whose transfer slot matrices the
+# pair-operator engine of CASES reads
+SLOT_MATRICES = ((1, 16), (1, 8), (2, 8))
+for _k, _n in SLOT_MATRICES:
+    REFS.add(f"slot_matrices[{_k}-{_n}]", "transfer",
+             f"_transfer_slot_matrices(HHODegreeInfo({_k + 1}, {_k}), 1/{_n}, "
+             f"float64) under jax.jit",
+             lambda k, n: jax_transfer_arrays(
+                 "_transfer_slot_matrices", JHHODegreeInfo(k + 1, k),
+                 1.0 / n, "float64"), k=_k, n=_n)
+
+
+def _stored_slot_matrices(jhdi, h, dtype):
+    """The JAX package's own (MH, MV), read from the store."""
+    MH, MV = REFS[f"slot_matrices[{jhdi.face_degree}-{round(1.0 / h)}]"]
+    return jnp.asarray(MH, dtype), jnp.asarray(MV, dtype)
 
 
 @pytest.fixture(autouse=True, scope="module")
-def _port_transfers_one_thread():
+def _stored_transfers_one_thread():
     with pytest.MonkeyPatch.context() as mp, \
             threadpoolctl.threadpool_limits(1):
-        mp.setattr(jmg, "_transfer_slot_matrices", _port_slot_matrices)
+        mp.setattr(jmg, "_transfer_slot_matrices", _stored_slot_matrices)
         threads = torch.get_num_threads()
         torch.set_num_threads(1)
         yield
@@ -121,14 +136,23 @@ def _jax_levels(N, k):
 
 @functools.lru_cache(maxsize=None)
 def _galerkin(N, k):
-    """(port {n: GalerkinLevel}, JAX {n: GalerkinLevel}) of the same
-    fine level."""
-    hdi, jhdi = HHODegreeInfo(k + 1, k), JHHODegreeInfo(k + 1, k)
-    gal = fs.band_galerkin_levels(_levels(N, k), hdi)
-    jgal = jfs.band_galerkin_levels(_jax_levels(N, k), jhdi,
+    """The port's {n: GalerkinLevel} of its fine level."""
+    return fs.band_galerkin_levels(_levels(N, k), HHODegreeInfo(k + 1, k))
+
+
+def _jax_galerkin(N, k):
+    """The JAX package's {n: GalerkinLevel} of the port's fine level."""
+    return jfs.band_galerkin_levels(_jax_levels(N, k),
+                                    JHHODegreeInfo(k + 1, k),
                                     jfs.default_problem(), jfs.nitsche_eta(k),
                                     dtype=jnp.float64)
-    return gal, jgal
+
+
+def _level_inputs(N, k):
+    """The port's level data the JAX side is given: the fine level's
+    (S_u, dS, irr_ids) and every level's cut ids."""
+    return list(_fine_args(N, k)[1:]) + [
+        np.asarray(lev.cut_ids) for _, lev in sorted(_levels(N, k).items())]
 
 
 @pytest.mark.parametrize("N,k", CASES)
@@ -186,11 +210,9 @@ def test_pair_op_engine_matches(N, k):
            jmg.pair_op_dense(8, *jop, fbs))
 
 
-@pytest.mark.parametrize("fbs", [2, 3])
-def test_galerkin_operator_matches(fbs):
-    """make_galerkin_operator_cl on seeded random data at 12 x 12 cells:
-    a 5 x 5 stencil, deviation pairs with repeated rows, a random grid
-    vector, 1e-12."""
+def _galerkin_operator_data(fbs):
+    """Seeded random data at 12 x 12 cells: a 5 x 5 stencil, deviation
+    pairs with repeated rows, a random grid vector (JAX)."""
     rng = np.random.default_rng(fbs)
     n, nfd, P = 12, 4 * fbs, 40
     K = rng.standard_normal((nfd, nfd, 5, 5))
@@ -200,23 +222,72 @@ def test_galerkin_operator_matches(fbs):
     blocks = rng.standard_normal((P, nfd, nfd))
     jx = jcl.GridVecCL(jnp.asarray(rng.standard_normal((fbs, n + 1, n))),
                        jnp.asarray(rng.standard_normal((fbs, n, n + 1))))
+    return n, K, rows, cols, blocks, jx
+
+
+def _jax_galerkin_operator(fbs):
+    n, K, rows, cols, blocks, jx = _galerkin_operator_data(fbs)
     jsys = jstructured.make_structured_system(n, n, fbs)
-    sys_ = structured.make_structured_system(n, n, fbs, device=CPU)
-    jy = jmg.make_galerkin_operator_cl(
+    return dict(pairs=jmg.make_galerkin_operator_cl(
         jsys, jnp.asarray(K), jnp.asarray(rows), jnp.asarray(cols),
-        jnp.asarray(blocks))(jx)
+        jnp.asarray(blocks))(jx),
+        stencil=jmg.make_galerkin_operator_cl(jsys, jnp.asarray(K))(jx))
+
+
+for _fbs in (2, 3):
+    REFS.add(f"galerkin_operator[{_fbs}]", "operator",
+             f"make_galerkin_operator_cl(sys 12 x 12, fbs {_fbs}, K, rows, "
+             f"cols, blocks)(x) and make_galerkin_operator_cl(sys, K)(x) on "
+             f"seeded random data", _jax_galerkin_operator, seed=_fbs,
+             fbs=_fbs)
+
+
+@pytest.mark.parametrize("fbs", [2, 3])
+def test_galerkin_operator_matches(fbs):
+    """make_galerkin_operator_cl on seeded random data at 12 x 12 cells:
+    a 5 x 5 stencil, deviation pairs with repeated rows, a random grid
+    vector, 1e-12."""
+    n, K, rows, cols, blocks, jx = _galerkin_operator_data(fbs)
+    sys_ = structured.make_structured_system(n, n, fbs, device=CPU)
+    ref = REFS[f"galerkin_operator[{fbs}]"]
     t = torch.as_tensor
     y = multigrid.make_galerkin_operator_cl(
         sys_, t(K), t(rows), t(cols), t(blocks))(
             convert.grid_vec_cl(jx, CPU))
-    for a, b in zip(y, jy):
+    for a, b in zip(y, ref.pairs):
         _close(a, b)
     # without pairs: the constant stencil alone
-    jy = jmg.make_galerkin_operator_cl(jsys, jnp.asarray(K))(jx)
     y = multigrid.make_galerkin_operator_cl(sys_, t(K))(
         convert.grid_vec_cl(jx, CPU))
-    for a, b in zip(y, jy):
+    for a, b in zip(y, ref.stencil):
         _close(a, b)
+
+
+GALERKIN_FIELDS = ("kernel", "blocks", "cblocks", "Bu_cell", "rows", "cols",
+                   "cells", "coarse_Q", "coarse_winv")
+
+
+def _jax_band_levels(N, k):
+    """The JAX package's band_galerkin_levels of the port's fine level,
+    level by level, with its galerkin_patch_setup on each coarse level's
+    patch cells; and the digest of the port's level data."""
+    out = dict(inputs=_level_inputs(N, k))
+    for n, jg in _jax_galerkin(N, k).items():
+        pids = fs.expand_ring(_levels(N, k)[n].cut_ids, n, 1)
+        jsys = jstructured.make_structured_system(n, n, k + 1)
+        out[n] = dict({f: getattr(jg, f) for f in GALERKIN_FIELDS},
+                      patch=jmg.galerkin_patch_setup(jsys, jg, pids,
+                                                     jnp.float64))
+    return out
+
+
+for _N, _k in ((16, 1), (16, 2)):
+    REFS.add(f"band_levels[{_N}-{_k}]", "galerkin",
+             f"band_galerkin_levels(the port's {_N}^2 k={_k} lean levels, "
+             f"HHODegreeInfo({_k + 1}, {_k}), default_problem(), "
+             f"nitsche_eta({_k})), and galerkin_patch_setup(sys, level, "
+             f"expand_ring(cut_ids, n, 1)) per coarse level",
+             _jax_band_levels, N=_N, k=_k)
 
 
 @pytest.mark.parametrize("N,k", [(16, 1), (16, 2)])
@@ -225,8 +296,11 @@ def test_band_galerkin_levels_and_patch_setup_match(N, k):
     the coarsest pseudo-inverse as Q diag(winv) Q^T, 1e-10), then
     galerkin_patch_setup on the patch cells of each coarse level (the
     inverted blocks 1e-10, the weights 1e-12)."""
-    gal, jgal = _galerkin(N, k)
-    assert sorted(gal) == sorted(jgal) == [n for n in _levels(N, k) if n < N]
+    gal = _galerkin(N, k)
+    jgal = REFS.get(f"band_levels[{N}-{k}]", inputs=_level_inputs(N, k))
+    assert sorted(gal) == sorted(int(n) for n in jgal._fields
+                                 if n != "inputs") == \
+        [n for n in _levels(N, k) if n < N]
     for n, g in gal.items():
         jg = jgal[n]
         for f in ("kernel", "blocks", "cblocks", "Bu_cell"):
@@ -241,36 +315,38 @@ def test_band_galerkin_levels_and_patch_setup_match(N, k):
             _close(pinv, (jQ * np.asarray(jg.coarse_winv)) @ jQ.T, 1e-10)
         pids = fs.expand_ring(_levels(N, k)[n].cut_ids, n, 1)
         sys_ = structured.make_structured_system(n, n, k + 1, device=CPU)
-        jsys = jstructured.make_structured_system(n, n, k + 1)
         out = multigrid.galerkin_patch_setup(sys_, g, pids, F64)
-        jout = jmg.galerkin_patch_setup(jsys, jg, pids, jnp.float64)
+        jout = jg.patch
         _close(out[0], jout[0], 1e-10)
         for a, b in zip(out[1:], jout[1:]):
             _close(a, b)
 
 
-def test_vcycle_over_galerkin_levels_matches():
-    """One V-cycle of build_multigrid(galerkin_per_level=...) over the
-    32^2 k=1 hierarchy (32, 16, 8: the top gap re-visits at gamma 2) on a
-    seeded residual, gamma 1 and 2, against the JAX package's over the
-    same levels: 1e-10. The cycle stays symmetric, <M r, s> = <r, M s>."""
-    N, k = 32, 1
-    fbs = k + 1
-    levels = _levels(N, k)
-    gal, jgal = _galerkin(N, k)
-    cuts = {n: fs.expand_ring(lev.cut_ids, n, 1) for n, lev in levels.items()}
-    jS = {n: jnp.asarray(lev.cond.dS.numpy()) for n, lev in levels.items()}
-    jkw = dict(
-        uniform_per_level={n: (lev.S_u.numpy(), np.asarray(lev.irr_ids))
-                           for n, lev in levels.items()},
-        cut_ids_per_level=cuts)
+def _vcycle_residuals(N, fbs):
+    """The seeded residual r (JAX) and second vector s (the port's)."""
     rng = np.random.default_rng(32)
     jr = jcl.GridVecCL(jnp.asarray(rng.standard_normal((fbs, N + 1, N))),
                        jnp.asarray(rng.standard_normal((fbs, N, N + 1))))
     s = convert.grid_vec_cl(jcl.GridVecCL(
         jnp.asarray(rng.standard_normal((fbs, N + 1, N))),
         jnp.asarray(rng.standard_normal((fbs, N, N + 1)))), CPU)
-    r = convert.grid_vec_cl(jr, CPU)
+    return jr, s
+
+
+def _jax_galerkin_vcycles():
+    """The JAX package's V-cycle over the Galerkin hierarchy of the port's
+    32^2 k=1 levels at gamma 1 and 2, on the seeded residual (one jitted
+    graph); and the digest of the port's level data."""
+    N, k = 32, 1
+    fbs = k + 1
+    levels = _levels(N, k)
+    cuts = {n: fs.expand_ring(lev.cut_ids, n, 1) for n, lev in levels.items()}
+    jS = {n: jnp.asarray(lev.cond.dS.numpy()) for n, lev in levels.items()}
+    jkw = dict(
+        uniform_per_level={n: (lev.S_u.numpy(), np.asarray(lev.irr_ids))
+                           for n, lev in levels.items()},
+        cut_ids_per_level=cuts)
+    jr, _ = _vcycle_residuals(N, fbs)
 
     def jax_cycles(r, S, galerkin):
         # one compiled graph, the arrays as arguments: the eager build
@@ -282,9 +358,39 @@ def test_vcycle_over_galerkin_levels_matches():
         return tuple(m._replace(gamma=gamma).precondition(r)
                      for gamma in (1, 2))
 
+    return dict(inputs=_vcycle_inputs(levels),
+                cycles=jax.jit(jax_cycles)(jr, jS, _jax_galerkin(N, k)))
+
+
+def _vcycle_inputs(levels):
+    return [a for _, lev in sorted(levels.items()) for a in
+            (lev.cond.dS, lev.S_u, np.asarray(lev.irr_ids),
+             np.asarray(lev.cut_ids))]
+
+
+REFS.add("vcycle", "vcycle",
+         "build_multigrid(32, 2, dS per level, HHODegreeInfo(2, 1), "
+         "coarsest=8, n_smooth=1, smoother='chebyshev', layout='cl', "
+         "galerkin_per_level=band_galerkin_levels(...)).precondition(r) at "
+         "gamma 1 and 2 under jax.jit, over the port's 32^2 k=1 levels",
+         _jax_galerkin_vcycles, seed=32)
+
+
+def test_vcycle_over_galerkin_levels_matches():
+    """One V-cycle of build_multigrid(galerkin_per_level=...) over the
+    32^2 k=1 hierarchy (32, 16, 8: the top gap re-visits at gamma 2) on a
+    seeded residual, gamma 1 and 2, against the JAX package's over the
+    same levels: 1e-10. The cycle stays symmetric, <M r, s> = <r, M s>."""
+    N, k = 32, 1
+    fbs = k + 1
+    levels = _levels(N, k)
+    gal = _galerkin(N, k)
+    jr, s = _vcycle_residuals(N, fbs)
+    r = convert.grid_vec_cl(jr, CPU)
+    jcycles = REFS.get("vcycle", inputs=_vcycle_inputs(levels)).cycles
     mgrid = fs.level_multigrid(levels, HHODegreeInfo(k + 1, k),
                                galerkin=gal)
-    for gamma, jz in zip((1, 2), jax.jit(jax_cycles)(jr, jS, jgal)):
+    for gamma, jz in zip((1, 2), jcycles):
         z = mgrid._replace(gamma=gamma).precondition(r)
         for a, b in zip(z, jz):
             _close(a, b, 1e-10)
@@ -331,7 +437,7 @@ def _dense_16_8():
     sys_c = structured.make_structured_system(nc, nc, fbs, device=CPU)
     A_f = cells_last.make_uniform_operator_cl(sys_f, fine.S_u, fine.irr_ids,
                                               fine.cond.dS)
-    gal = _galerkin(N, k)[0]
+    gal = _galerkin(N, k)
     g = gal[nc]
     A_c = multigrid.make_galerkin_operator_cl(sys_c, g.kernel, g.rows,
                                               g.cols, g.blocks)

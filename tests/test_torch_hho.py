@@ -2,8 +2,13 @@
 proton_tpu on the CPU, float64: the topology builder and the text-format
 loader (exact), the geometry (1e-14), mass matrices, projections and the
 local operators (1e-12 relative), on a quad mesh and on a polygonal
-"brick" mesh of mixed 4-, 5- and 6-gons. The JAX operators run under
-jax.jit, once per module."""
+"brick" mesh of mixed 4-, 5- and 6-gons. The JAX operators (one jax.jit
+call per mesh) are read from tests/jax_refs/test_torch_hho.npz (REFS
+below; tests/torch_jax_reference.py writes it on the same meshes)."""
+
+import functools
+import os
+import tempfile
 
 import numpy as np
 import jax
@@ -19,8 +24,10 @@ from proton_tpu_torch import convert
 from proton_tpu_torch.core import geometry, mesh, ops
 from proton_tpu_torch.methods import fused_assembly, hho
 from proton_tpu_torch.tools.brick_mesh import write_brick_mesh
+from torch_jax_reference import Refs
 
 CPU = torch.device("cpu")
+REFS = Refs(__name__)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -68,22 +75,30 @@ def _assert_same_mesh(tm, jm):
                                       np.asarray(getattr(jm, f)), err_msg=f)
 
 
-@pytest.fixture(scope="module")
-def meshes(tmp_path_factory):
-    """(JAX mesh, port mesh) pairs: the brick mesh (3 x 4 bricks, loaded
-    by both packages from one file) and the 4 x 4 quad mesh with its
-    interior points jittered."""
-    path = tmp_path_factory.mktemp("mesh") / "brick.txt"
-    write_brick_mesh(path, 3, 4)
-    jb = pt.load_poly_mesh(str(path))
+@functools.lru_cache(maxsize=None)
+def _jax_meshes():
+    """The JAX meshes: the brick mesh (3 x 4 bricks, loaded from the file
+    the port's tool writes) and the 4 x 4 quad mesh with its interior
+    points jittered."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "brick.txt")
+        write_brick_mesh(path, 3, 4)
+        jb = pt.load_poly_mesh(path)
     jq = pt.make_quad_mesh(Nx=4, Ny=4)
     pts = np.asarray(jq.points).copy()
     inner = (pts > 0).all(1) & (pts < 1).all(1)
     pts[inner] += np.random.default_rng(0).uniform(-0.05, 0.05,
                                                    (inner.sum(), 2))
-    jq = jq.with_points(jnp.asarray(pts))
-    return {"brick": (jb, convert.mesh(jb, CPU)),
-            "quad": (jq, convert.mesh(jq, CPU))}
+    return {"brick": jb, "quad": jq.with_points(jnp.asarray(pts))}
+
+
+@pytest.fixture(scope="module")
+def meshes():
+    """(JAX mesh, port mesh) pairs: the brick mesh (3 x 4 bricks, loaded
+    by both packages from one file) and the 4 x 4 quad mesh with its
+    interior points jittered."""
+    return {name: (jm, convert.mesh(jm, CPU))
+            for name, jm in _jax_meshes().items()}
 
 
 GEOMETRY_FNS = ("cell_barycenters", "cell_measures", "cell_diameters",
@@ -94,12 +109,10 @@ def _smooth(lib):
     return lambda p: lib.sin(3 * p[..., 0]) * lib.exp(p[..., 1])
 
 
-@pytest.fixture(scope="module")
-def jax_refs(meshes):
+def _jax_everything(name):
     """The JAX package's geometry, mass matrices, projections, SPD inverse
     and condition number, and hho_laplacian / naive / fancy stabilization
-    for every degree pair, on each mesh: one jax.jit call per mesh, as
-    numpy. Keys: (mesh, "geometry"), (mesh, "ops"), (mesh, degrees)."""
+    for every degree pair, on mesh ``name``: one jax.jit call."""
     def everything(m):
         g = jgeometry.cell_geometry(m)
         out = {"geometry": [getattr(jgeometry, fn)(m)
@@ -116,11 +129,26 @@ def jax_refs(meshes):
                             jhho.fancy_stabilization(m, g, h, oper)]
         return out
 
+    return jax.jit(everything)(_jax_meshes()[name])
+
+
+for _name in ("brick", "quad"):
+    REFS.add(f"everything[{_name}]", "operator",
+             f"cell geometry, mass matrices (0, 1, 2), spd_inverse, "
+             f"condition_number, project_function, hho_laplacian, naive and "
+             f"fancy stabilization for HDIS on the {_name} mesh, under "
+             f"jax.jit", _jax_everything, name=_name)
+
+
+@pytest.fixture(scope="module")
+def jax_refs(meshes):
+    """The stored _jax_everything of each mesh, as numpy. Keys: (mesh,
+    "geometry"), (mesh, "ops"), (mesh, degrees)."""
     keys = {"geometry": "geometry", "ops": "ops",
             **{str(hd): hd for hd in HDIS}}
     refs = {}
-    for name, (jm, _) in meshes.items():
-        for key, vals in jax.jit(everything)(jm).items():
+    for name in meshes:
+        for key, vals in REFS[f"everything[{name}]"].items():
             refs[(name, keys[key])] = [np.asarray(a) for a in vals]
     return refs
 

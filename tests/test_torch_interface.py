@@ -4,12 +4,15 @@ rank-one regularization, check_eigs, the side projection, the assembled
 face blocks, both preconditioners of the condensed system applied to a
 seeded vector, take_local_data, the H1 error, and the solve (condensed
 + MG, condensed against the full system, a kappa contrast on the
-block-Jacobi branch). The JAX package's interface solve at 16^2 k=1 runs
-once, with its per-cell operators and its multigrid setup under jax.jit
-and its multigrid transfer builders answered by the port's
-(tests/torch_jax_reference.py; tests/test_torch_multigrid_transfers.py
-holds them to the JAX package's own); its preconditioner's inputs are
-captured on the way and fed to both packages."""
+block-Jacobi branch). The JAX package's interface solve at 16^2 k=1 (its
+per-cell operators and its multigrid setup under jax.jit; its
+preconditioner's inputs captured on the way and fed to both packages),
+its operators on the solve's cut batch and its preconditioners applied
+to seeded vectors are read from tests/jax_refs/test_torch_interface.npz
+(REFS below; tests/torch_jax_reference.py writes it, running the JAX
+package alone)."""
+
+import functools
 
 import numpy as np
 import jax
@@ -33,7 +36,7 @@ from proton_tpu_torch.cut import interface_problem as ip, methods
 from proton_tpu_torch.cut.classify import LOC_NEG, LOC_POS, cut_preprocess
 from proton_tpu_torch.cut.fictdom_structured import default_problem
 from proton_tpu_torch.solvers import cg
-from torch_jax_reference import jax_transfer_builders
+from torch_jax_reference import Refs
 
 CPU = torch.device("cpu")
 PI = np.pi
@@ -42,6 +45,7 @@ PI = np.pi
 # parms=InterfaceParams(1.0, 3.0)), the block-Jacobi branch (kappa_1 !=
 # kappa_2): (CG iterations, H1 error).
 KAPPA_CONTRAST_8 = (130, 1.2251883059052757)
+REFS = Refs(__name__)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -67,18 +71,16 @@ def _jax_problem():
     return (lambda p: 2.0 * PI ** 2 * sol(p)), sol, grad
 
 
-@pytest.fixture(scope="module")
-def ref():
+@functools.lru_cache(maxsize=None)
+def _jax_interface():
     """The JAX package's solve_interface at 16^2 k=1 (condensed + MG),
-    with its per-cell operators and mg_setup_cl under jax.jit, its
-    transfer builders answered by the port's, and the arguments of its
-    preconditioner and of its CG captured."""
+    with its per-cell operators and mg_setup_cl under jax.jit, and the
+    arguments of its preconditioner and of its CG captured."""
     import proton_tpu as pt
     from proton_tpu.cut import classify as jclassify
 
     captured = {}
     mp = pytest.MonkeyPatch()
-    jax_transfer_builders(mp)
     jit = jax.jit
     mp.setattr(jmethods, "interface_laplacian",
                jit(jmethods.interface_laplacian, static_argnums=(1, 2, 3)))
@@ -147,6 +149,43 @@ def ref():
                 neg=neg, pos=pos, h1=h1, ls=ls, **captured)
 
 
+def _jax_solve():
+    """What the tests read of _jax_interface: the classified mesh, cut
+    data, dofmap, result, Dirichlet data, cut batch, both sides' local
+    data and H1; the CG's right-hand side; the preconditioner's arguments
+    and its apply to a seeded vector; the assembled face blocks and the
+    face block-Jacobi apply to another."""
+    ref = _jax_interface()
+    (_, jdm, nfd, S, idx_c, blocks, N, _, _) = ref["precond_args"]
+    r = np.random.default_rng(5).standard_normal(nfd)
+    r6 = np.random.default_rng(6).standard_normal(nfd)
+    return dict(
+        {k: ref[k] for k in ("mesh", "cd", "res", "dm", "fd", "batch", "neg",
+                             "pos", "h1", "rhs")},
+        precond_args=dict(dm=jdm, nfd=nfd, S=S, idx_c=idx_c, blocks=blocks,
+                          N=N),
+        precond_z=jax.jit(ref["precond"])(jnp.asarray(r)),
+        face_blocks=jip._assembled_face_blocks(jdm, nfd, blocks),
+        block_jacobi_z=jip._face_block_jacobi(jdm, nfd, blocks)(
+            jnp.asarray(r6)))
+
+
+REFS.add("solve", "solve",
+         "solve_interface(cut_preprocess(make_poly_mesh(16, 16), circle "
+         "0.35, levels=4), ls, 1, rhs, sol, grad) with its per-cell stages "
+         "and mg_setup_cl under jax.jit; take_local_data, "
+         "interface_h1_error; _interface_mg_precond(...)(r), "
+         "_assembled_face_blocks, _face_block_jacobi(...)(r)", _jax_solve,
+         seed=[5, 6])
+
+
+@pytest.fixture(scope="module")
+def ref():
+    """The JAX package's stored interface solve at 16^2 k=1 and what the
+    tests read beside it (_jax_solve)."""
+    return REFS["solve"]
+
+
 @pytest.fixture(scope="module")
 def port(ref):
     """The JAX classified mesh and cut data, converted."""
@@ -175,6 +214,33 @@ def test_dofmap_matches(ref, port):
     assert len(dm.cut_ids) > 0 and dm.n_dofs > int(dm.asm_uncut.max()) - 1
 
 
+def _jax_operators(k):
+    """interface_laplacian, check_eigs and cut_project_function of both
+    sides on the JAX solve's cut batch at degree k, under jax.jit."""
+    ref = _jax_interface()
+    jbatch, jhdi = ref["batch"], JHDI(k + 1, k)
+    joper, jdata = jax.jit(jmethods.interface_laplacian,
+                           static_argnums=(1, 2, 3))(
+        jbatch, ref["ls"], jhdi, jmethods.InterfaceParams(1.0, 2.0))
+    out = dict(oper=joper, data=jdata)
+    for side in (LOC_NEG, LOC_POS):
+        out[f"eig{side}"] = jax.jit(jmethods.check_eigs,
+                                    static_argnums=(1, 2, 3))(
+            jbatch, ref["ls"], jhdi, side)
+        out[f"proj{side}"] = jax.jit(jmethods.cut_project_function,
+                                     static_argnums=(1, 2, 3))(
+            jbatch, jhdi, side, _jax_problem()[1])
+    return out
+
+
+for _k in (0, 1, 2):
+    REFS.add(f"operators[{_k}]", "operator",
+             f"interface_laplacian(batch, ls, HHODegreeInfo({_k + 1}, {_k}), "
+             f"InterfaceParams(1.0, 2.0)), check_eigs and "
+             f"cut_project_function of both sides on the solve's cut batch",
+             _jax_operators, k=_k)
+
+
 @pytest.mark.parametrize("k", [0, 1, 2])
 def test_interface_operators_match(ref, k):
     """interface_laplacian (oper and data), check_eigs and the side
@@ -185,14 +251,12 @@ def test_interface_operators_match(ref, k):
     k=1, 9.6e-10 at k=2 with the degree-3 cell basis). So data is held
     to 1e-11, oper to 1e-10 (as cut_hho_laplacian's,
     tests/test_torch_cut.py) and the projections to 1e-8."""
-    jbatch = ref["batch"]
-    batch = convert.cut_cell_batch(jbatch, CPU)
+    batch = convert.cut_cell_batch(ref["batch"], CPU)
     p = default_problem()
     parms = methods.InterfaceParams(1.0, 2.0)
-    jhdi, hdi = JHDI(k + 1, k), HHODegreeInfo(k + 1, k)
-    joper, jdata = jax.jit(jmethods.interface_laplacian,
-                           static_argnums=(1, 2, 3))(
-        jbatch, ref["ls"], jhdi, jmethods.InterfaceParams(1.0, 2.0))
+    hdi = HHODegreeInfo(k + 1, k)
+    jops = REFS[f"operators[{k}]"]
+    joper, jdata = jops.oper, jops.data
     oper, data = methods.interface_laplacian(batch, p.ls, hdi, parms)
     assert _rel(data, jdata) < 1e-11
     assert _rel(oper, joper) < 1e-10
@@ -203,12 +267,9 @@ def test_interface_operators_match(ref, k):
         -1e-10 * float(data.abs().max())
     assert bool(torch.isfinite(oper).all())
     for side in (LOC_NEG, LOC_POS):
-        jeig = jax.jit(jmethods.check_eigs, static_argnums=(1, 2, 3))(
-            jbatch, ref["ls"], jhdi, side)
+        jeig = jops[f"eig{side}"]
         assert _rel(methods.check_eigs(batch, p.ls, hdi, side), jeig) < 1e-11
-        jproj = jax.jit(jmethods.cut_project_function,
-                        static_argnums=(1, 2, 3))(
-            jbatch, jhdi, side, _jax_problem()[1])
+        jproj = jops[f"proj{side}"]
         proj = methods.cut_project_function(batch, hdi, side, p.sol_fun)
         assert _rel(proj, jproj) < 1e-8
 
@@ -216,7 +277,7 @@ def test_interface_operators_match(ref, k):
 def _precond_inputs(ref, port):
     """The JAX preconditioner's arguments, converted (identical inputs)."""
     mesh, _ = port
-    (jmesh, jdm, nfd, S, idx_c, blocks, N, hdi, dtype) = ref["precond_args"]
+    jdm, nfd, S, idx_c, blocks, N = ref["precond_args"]
     blocks_t = [tuple(convert.tensor(a, CPU) for a in blk)
                 for blk in blocks]
     return (mesh, convert.interface_dofmap(jdm, CPU), nfd,
@@ -227,9 +288,8 @@ def _precond_inputs(ref, port):
 def test_assembled_face_blocks_match(ref, port):
     """The assembled per-face diagonal blocks from the same condensed
     blocks, 1e-13 relative; they sum both neighbours' contributions."""
-    args, jblocks = _precond_inputs(ref, port)
-    jFB = jip._assembled_face_blocks(ref["precond_args"][1], args[2],
-                                     jblocks)
+    args, _ = _precond_inputs(ref, port)
+    jFB = ref["face_blocks"]
     FB = ip._assembled_face_blocks(args[1], args[2], args[5])
     assert _rel(FB, jFB) < 1e-13
 
@@ -243,7 +303,7 @@ def test_mg_precond_apply_matches(ref, port):
     n = args[2]
     rng = np.random.default_rng(5)
     r, s = rng.standard_normal(n), rng.standard_normal(n)
-    jz = jax.jit(ref["precond"])(jnp.asarray(r))
+    jz = ref["precond_z"]
     z = M(torch.as_tensor(r))
     assert _rel(z, jz) < 1e-10
     a = float(torch.dot(torch.as_tensor(s), z))
@@ -254,10 +314,10 @@ def test_mg_precond_apply_matches(ref, port):
 def test_block_jacobi_apply_matches(ref, port):
     """_face_block_jacobi (the branch of kappa contrasts and of other
     meshes) applied to a seeded vector from identical blocks: 1e-12."""
-    args, jblocks = _precond_inputs(ref, port)
-    jdm, n = ref["precond_args"][1], args[2]
+    args, _ = _precond_inputs(ref, port)
+    n = args[2]
     r = np.random.default_rng(6).standard_normal(n)
-    jz = jip._face_block_jacobi(jdm, n, jblocks)(jnp.asarray(r))
+    jz = ref["block_jacobi_z"]
     z = ip._face_block_jacobi(args[1], n, args[5])(torch.as_tensor(r))
     assert _rel(z, jz) < 1e-12
 

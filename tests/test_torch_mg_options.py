@@ -9,13 +9,12 @@ JAX package ignores an option (the bench's knobs:
 tests/test_torch_bench.py). The end-to-end solves with each option and
 the family app in float32 are in tests/test_torch_mg_options_solve.py.
 
-The JAX package's transfer builders (_transfer_slot_matrices,
-_transfer_face_projectors, _unit_recmap) are handed the port's, computed
-once per (degree, h) (tests/torch_jax_reference.py):
-tests/test_torch_multigrid_transfers.py holds them to the JAX package's
-to 1e-12, and the JAX package's own take seconds of compilation per
-call. Every JAX V-cycle runs under jax.jit. BLAS and torch run on one
-thread."""
+The JAX package's side of the transfers, the deviations and the V-cycles,
+and its levels, are read from tests/jax_refs/test_torch_mg_options.npz
+(REFS below; tests/torch_jax_reference.py writes it, running the JAX
+package alone, with its own transfer builders, on the same seeded
+inputs; each V-cycle under jax.jit over the stored levels). BLAS and
+torch run on one thread."""
 
 import functools
 
@@ -35,10 +34,11 @@ from proton_tpu_torch.core.ops import HHODegreeInfo
 from proton_tpu_torch.cut import fictdom_structured as fs
 from proton_tpu_torch.methods import cells_last, structured
 from proton_tpu_torch.solvers import multigrid
-from torch_jax_reference import jax_transfer_builders, port_transfer_arrays
+from torch_jax_reference import Refs
 
 CPU = torch.device("cpu")
 F64 = torch.float64
+REFS = Refs(__name__)
 # The V-cycle options, as solve_fictdom_structured keywords.
 OPTIONS = {"cheb_mixed": dict(cheb_ops="mixed"),
            "cheb_uniform": dict(cheb_ops="uniform"),
@@ -48,11 +48,8 @@ OPTIONS = {"cheb_mixed": dict(cheb_ops="mixed"),
 
 @pytest.fixture(autouse=True, scope="module")
 def _one_thread():
-    """Hands the JAX package the port's transfer builders, and keeps BLAS
-    and torch on one thread."""
-    with pytest.MonkeyPatch.context() as mp, \
-            threadpoolctl.threadpool_limits(1):
-        jax_transfer_builders(mp)
+    """Keeps BLAS and torch on one thread."""
+    with threadpoolctl.threadpool_limits(1):
         threads = torch.get_num_threads()
         torch.set_num_threads(1)
         yield
@@ -86,27 +83,18 @@ IDS = np.array([9, 10, 17, 27, 36, 37, 44], dtype=np.int64)
 
 
 def _transfer_pair(k, drec, corr_on=True):
-    """(port prolongation, restriction, JAX prolongation, restriction),
-    16^2 <- 8^2, with the correction (IDS, drec)."""
-    jhdi, hdi = JHHODegreeInfo(k + 1, k), HHODegreeInfo(k + 1, k)
+    """(port prolongation, restriction), 16^2 <- 8^2, with the correction
+    (IDS, drec)."""
+    hdi = HHODegreeInfo(k + 1, k)
     fbs = k + 1
-    jf, jc = (jstructured.make_structured_system(n, n, fbs) for n in (16, 8))
     sf, sc = (structured.make_structured_system(n, n, fbs, device=CPU)
               for n in (16, 8))
     PH, PV = multigrid._transfer_face_projectors(hdi, 0.125, device=CPU)
     corr = (IDS, torch.as_tensor(drec), PH, PV) if corr_on else None
-    jcorr = (IDS, jnp.asarray(drec), jnp.asarray(PH.numpy()),
-             jnp.asarray(PV.numpy())) if corr_on else None
-    mats = tuple(jnp.asarray(m) for m in port_transfer_arrays(
-        "_transfer_slot_matrices", k + 1, k, 0.125))
     return (multigrid.make_reconstruction_prolongation_cl(
                 sf, sc, hdi, 0.125, corr=corr),
             multigrid.make_reconstruction_restriction_cl(
-                sf, sc, hdi, 0.125, corr=corr),
-            jmg.make_reconstruction_prolongation_cl(
-                jf, jc, jhdi, 0.125, jnp.float64, mats=mats, corr=jcorr),
-            jmg.make_reconstruction_restriction_cl(
-                jf, jc, jhdi, 0.125, jnp.float64, mats=mats, corr=jcorr))
+                sf, sc, hdi, 0.125, corr=corr))
 
 
 def _drec(k, seed):
@@ -115,17 +103,45 @@ def _drec(k, seed):
         (rbs * 4 * (k + 1), len(IDS)))
 
 
+def _jax_corrected_transfers(k):
+    """The JAX package's cut-aware prolongation of a random coarse grid
+    plus its restriction of a random fine one, 16^2 <- 8^2, with its own
+    transfer matrices and face projectors and the correction (IDS,
+    _drec(k, k))."""
+    jhdi = JHHODegreeInfo(k + 1, k)
+    jf, jc = (jstructured.make_structured_system(n, n, k + 1)
+              for n in (16, 8))
+    PH, PV = jmg._transfer_face_projectors(jhdi, 0.125)
+    jcorr = (IDS, jnp.asarray(_drec(k, k)), PH, PV)
+    mats = jmg._transfer_slot_matrices(jhdi, 0.125, jnp.float64)
+    jp = jmg.make_reconstruction_prolongation_cl(
+        jf, jc, jhdi, 0.125, jnp.float64, mats=mats, corr=jcorr)
+    jr = jmg.make_reconstruction_restriction_cl(
+        jf, jc, jhdi, 0.125, jnp.float64, mats=mats, corr=jcorr)
+    rng = np.random.default_rng(10 + k)
+    jxc, jrf = _grid(rng, k + 1, 8), _grid(rng, k + 1, 16)
+    return jax.jit(jp)(jxc) + jax.jit(jr)(jrf)
+
+
+for _k in (1, 2):
+    REFS.add(f"corrected_transfers[{_k}]", "transfer",
+             f"make_reconstruction_prolongation_cl(corr=...)(x_c) + "
+             f"make_reconstruction_restriction_cl(corr=...)(r_f), k={_k}, "
+             f"16^2 <- 8^2, drec 0.3 * N(0, 1) seed {_k}",
+             _jax_corrected_transfers, seed=[_k, 10 + _k], k=_k)
+
+
 @pytest.mark.parametrize("k", [1, 2])
 def test_corrected_transfers_match(k):
     """The cut-aware prolongation and restriction against the JAX
     package's on the same random drec and ids, 16^2 <- 8^2, 1e-12
     relative. Cells that share a face add to the same fine slots: JAX's
     .at[].add sums them, and so must the port."""
-    p, r, jp, jr = _transfer_pair(k, _drec(k, k))
+    p, r = _transfer_pair(k, _drec(k, k))
     rng = np.random.default_rng(10 + k)
     jxc, jrf = _grid(rng, k + 1, 8), _grid(rng, k + 1, 16)
     out = p(convert.grid_vec_cl(jxc, CPU)) + r(convert.grid_vec_cl(jrf, CPU))
-    for a, b in zip(out, jax.jit(jp)(jxc) + jax.jit(jr)(jrf)):
+    for a, b in zip(out, REFS[f"corrected_transfers[{k}]"]):
         _close(a, b, 1e-12)
 
 
@@ -134,7 +150,7 @@ def test_corrected_transfers_are_adjoint(k):
     """<P x, y> = <x, R y> with a random correction, to 1e-10: the
     restriction stays the exact adjoint, or the V-cycle is no longer a
     symmetric CG preconditioner."""
-    p, r, _, _ = _transfer_pair(k, _drec(k, 20 + k))
+    p, r = _transfer_pair(k, _drec(k, 20 + k))
     rng = np.random.default_rng(30 + k)
     xc = convert.grid_vec_cl(_grid(rng, k + 1, 8), CPU)
     yf = convert.grid_vec_cl(_grid(rng, k + 1, 16), CPU)
@@ -147,8 +163,8 @@ def test_zero_deviation_is_the_uniform_transfer(k):
     """A correction with drec = 0 reproduces the uniform transfers, to
     1e-14."""
     zero = np.zeros_like(_drec(k, 0))
-    p0, r0, _, _ = _transfer_pair(k, zero, corr_on=False)
-    p1, r1, _, _ = _transfer_pair(k, zero)
+    p0, r0 = _transfer_pair(k, zero, corr_on=False)
+    p1, r1 = _transfer_pair(k, zero)
     rng = np.random.default_rng(40 + k)
     xc = convert.grid_vec_cl(_grid(rng, k + 1, 8), CPU)
     yf = convert.grid_vec_cl(_grid(rng, k + 1, 16), CPU)
@@ -161,8 +177,8 @@ def test_zero_deviation_is_the_uniform_transfer(k):
 # ---------------------------------------------------------------------------
 
 
-@pytest.fixture(scope="module")
-def jax_levels():
+@functools.lru_cache(maxsize=None)
+def _jax_level_data():
     """The JAX package's lean 16^2 level (with its right-hand side) and
     its 8^2 coarse level (build_coarse_level: on the CPU it carries drec),
     k=1."""
@@ -171,6 +187,50 @@ def jax_levels():
     return {16: jfs.build_level(16, hdi, problem, eta, 4, False, False,
                                 with_rhs=True, fitted="lean"),
             8: jfs.build_coarse_level(8, hdi, problem, eta, 4, False)}
+
+
+def _jax_levels():
+    """What the tests read of _jax_level_data: ids, S_u, dS; drec at 8^2."""
+    return {n: dict(cut_ids=lev.cut_ids, irr_ids=lev.irr_ids, S_u=lev.S_u,
+                    cond=dict(dS=lev.cond.dS),
+                    **({"drec": lev.drec} if n == 8 else {}))
+            for n, lev in _jax_level_data().items()}
+
+
+REFS.add("levels", "level",
+         "build_level(16, HHODegreeInfo(2, 1), default_problem(), "
+         "nitsche_eta(1), 4, False, False, with_rhs=True, fitted='lean') "
+         "and build_coarse_level(8, ..., 4, False)", _jax_levels)
+
+
+def _jax_recdev(k):
+    """_level_recdev of the 8^2 coarse level's cut batch at degree k: its
+    float64 value (the batch's ids as floats) and the value it stores
+    (float32; at k=1 the level's own drec)."""
+    jlev = _jax_level_data()[8]
+    jhdi, jproblem = JHHODegreeInfo(k + 1, k), jfs.default_problem()
+
+    def jax_drec(batch):
+        return jfs._level_recdev(batch, jlev.cut_ids, jlev.irr_ids, jhdi,
+                                 jproblem, jfs.nitsche_eta(k), 8)
+
+    return dict(f64=jax_drec(jlev.batch._replace(
+        ids=jlev.batch.ids.astype(jnp.float64))),
+        stored=jlev.drec if k == 1 else jax_drec(jlev.batch))
+
+
+for _k in (1, 2):
+    REFS.add(f"recdev[{_k}]", "deviation",
+             f"_level_recdev(batch, cut_ids, irr_ids, HHODegreeInfo({_k + 1}, "
+             f"{_k}), default_problem(), nitsche_eta({_k}), 8) on the 8^2 "
+             f"coarse level's batch, with float ids and as it is",
+             _jax_recdev, k=_k)
+
+
+@pytest.fixture(scope="module")
+def jax_levels():
+    """The stored levels of _jax_level_data."""
+    return REFS["levels"]
 
 
 @pytest.mark.parametrize("k", [1, 2])
@@ -191,18 +251,12 @@ def test_level_recdev_matches(jax_levels, k):
                                  mg_coarsest=8, drec=True)[8]
     jlev = jax_levels[8]
     np.testing.assert_array_equal(lev.irr_ids, np.asarray(jlev.irr_ids))
-    jhdi, jproblem = JHHODegreeInfo(k + 1, k), jfs.default_problem()
-
-    def jax_drec(batch):
-        return jfs._level_recdev(batch, jlev.cut_ids, jlev.irr_ids, jhdi,
-                                 jproblem, jfs.nitsche_eta(k), 8)
-
+    jdrec = REFS[f"recdev[{k}]"]
     rbs, nfd = (k + 2) * (k + 3) // 2, 4 * (k + 1)
     assert lev.drec.dtype == F64
     assert tuple(lev.drec.shape) == (rbs * nfd, len(lev.irr_ids))
-    _close(lev.drec, jax_drec(jlev.batch._replace(
-        ids=jlev.batch.ids.astype(jnp.float64))), 1e-10)
-    stored = jlev.drec if k == 1 else jax_drec(jlev.batch)
+    _close(lev.drec, jdrec.f64, 1e-10)
+    stored = jdrec.stored
     assert stored.dtype == jnp.float32
     _close(lev.drec, stored, 1e-6)
     # displaced-only columns stay zero
@@ -328,18 +382,33 @@ def _jax_preconditioner(jax_levels, option):
                              jax_levels[8].cond.dS, jax_levels[8].drec)
 
 
+def _jax_vcycle(jax_levels, name):
+    """The JAX package's V-cycle with option ``name`` (and its deflation)
+    applied to the random residual of the test, over the stored levels."""
+    rng = np.random.default_rng(7)
+    jr = _grid(rng, 2, 16)
+    return _jax_preconditioner(jax_levels, OPTIONS[name])(jr.H, jr.V)
+
+
+for _name, _option in OPTIONS.items():
+    REFS.add(f"vcycle[{_name}]", "vcycle",
+             f"build_multigrid(16, 2, layout='cl', coarsest=8, n_smooth=1, "
+             f"smoother='chebyshev', {_option}).precondition(r) over the "
+             f"stored levels, under jax.jit", _jax_vcycle,
+             needs=("levels",), seed=7, name=_name)
+
+
 @pytest.mark.parametrize("name", list(OPTIONS))
 def test_vcycle_option_matches_and_is_symmetric(jax_levels, name):
     """One V-cycle apply with each option against the JAX package's on the
     same lean 16^2 / 8^2 levels and random residual, 1e-10 relative, and
     its symmetry <M r, s> = <r, M s> to 1e-10."""
     pre = _port_preconditioner(jax_levels, OPTIONS[name])
-    jpre = _jax_preconditioner(jax_levels, OPTIONS[name])
     rng = np.random.default_rng(7)
     jr, js = _grid(rng, 2, 16), _grid(rng, 2, 16)
     r, s = convert.grid_vec_cl(jr, CPU), convert.grid_vec_cl(js, CPU)
     Mr, Ms = pre(r), pre(s)
-    for a, b in zip(Mr, jpre(jr.H, jr.V)):
+    for a, b in zip(Mr, REFS[f"vcycle[{name}]"]):
         _close(a, b, 1e-10)
     lhs, rhs = _dot(Mr, s), _dot(r, Ms)
     assert abs(lhs - rhs) <= 1e-10 * abs(lhs)

@@ -7,13 +7,11 @@ in float32 (PROTON_TPU_X64=0) against the JAX app run in a subprocess
 (this process keeps JAX's x64 on). The options' transfers, deviations,
 deflation and V-cycles are in tests/test_torch_mg_options.py.
 
-The JAX package's transfer builders (_transfer_slot_matrices,
-_transfer_face_projectors, _unit_recmap) are handed the port's, computed
-once per (degree, h) (tests/torch_jax_reference.py):
-tests/test_torch_multigrid_transfers.py holds them to the JAX package's
-to 1e-12.
-The JAX solves run its _solve_jit over levels built once
-(torch_jax_reference.jax_solve). BLAS and torch run on one thread."""
+The JAX package's solves (its _solve_jit over its levels,
+torch_jax_reference.jax_solve) and its family app's JSON line are read
+from tests/jax_refs/test_torch_mg_options_solve.npz (REFS below;
+tests/torch_jax_reference.py writes it, running the JAX package alone).
+BLAS and torch run on one thread."""
 
 import json
 import os
@@ -32,9 +30,12 @@ from proton_tpu_torch.apps import fictdom_family
 from proton_tpu_torch.cut import batched
 from proton_tpu_torch.cut import fictdom_structured as fs
 from proton_tpu_torch.solvers import cg
-from torch_jax_reference import jax_solve, jax_transfer_builders
+import functools
+
+from torch_jax_reference import Refs, jax_solve_ref
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+REFS = Refs(__name__)
 
 # The family app's arguments for the float32 comparison.
 FAMILY_ARGS = ["-N", "32", "-k", "1", "-B", "2"]
@@ -52,27 +53,40 @@ def _jax_family(x64: str):
         stderr=subprocess.PIPE, text=True)
 
 
-@pytest.fixture(autouse=True, scope="module")
-def jax_family_f32():
-    """Starts the JAX family app in float32 in a subprocess at once (it
-    runs beside this module's tests; test_family_float32_matches_jax_app
-    reads it), hands the JAX package the port's transfer builders, and
-    keeps BLAS and torch on one thread."""
+def _jax_family_line():
+    """The JSON line of the JAX app with FAMILY_ARGS in float32 (a
+    subprocess with PROTON_TPU_X64=0): what the test reads of it."""
     proc = _jax_family("0")
-    try:
-        with pytest.MonkeyPatch.context() as mp, \
-                threadpoolctl.threadpool_limits(1):
-            jax_transfer_builders(mp)
-            threads = torch.get_num_threads()
-            torch.set_num_threads(1)
-            yield proc
-            torch.set_num_threads(threads)
-    finally:
-        proc.kill()
+    out, err = proc.communicate(timeout=600)
+    assert proc.returncode == 0, err[-2000:]
+    line = json.loads(out.strip().splitlines()[-1])
+    return {k: line[k] for k in ("all_converged", "overflow", "iterations",
+                                 "h1_errors")}
+
+
+REFS.add("family_app_f32", "app",
+         "PROTON_TPU_X64=0 python -m proton_tpu.apps.fictdom_family "
+         + " ".join(FAMILY_ARGS), _jax_family_line)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Keeps BLAS and torch on one thread."""
+    with threadpoolctl.threadpool_limits(1):
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        yield
+        torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")
-def jax_levels():
+def jax_family_f32():
+    """The JAX family app's stored line in float32."""
+    return REFS["family_app_f32"]
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_levels():
     """The JAX package's lean 16^2 level (with its right-hand side) and
     its 8^2 coarse level (build_coarse_level: on the CPU it carries drec),
     k=1."""
@@ -100,8 +114,22 @@ def _cg_params(pkg):
                         max_iter=50000, apply_preconditioner=True)
 
 
+def _jax_option_solve(name):
+    return jax_solve_ref(_jax_levels(), 1, _cg_params(jcg),
+                         keep=("iterations", "exit_reason", "h1"),
+                         **SOLVES[name][0])
+
+
+for _name, (_option, _, _) in SOLVES.items():
+    REFS.add(f"solve[{_name}]", "solve",
+             f"solve_fictdom_structured(16, 1, {_option}, mixed=False, "
+             f"use_pallas=False), CG tol 1e-10: _solve_jit over its "
+             f"build_level(16, fitted='lean') and build_coarse_level(8)",
+             _jax_option_solve, name=_name)
+
+
 @pytest.mark.parametrize("name", list(SOLVES))
-def test_solve_matches_jax(jax_levels, name):
+def test_solve_matches_jax(name):
     """solve_fictdom_structured(16, 1, ...) with each option against the
     JAX package's solve at tol 1e-10: both converge, iterations within 2
     and H1 within rtol 1e-6; the float32 V-cycle with the mixed Chebyshev
@@ -109,8 +137,7 @@ def test_solve_matches_jax(jax_levels, name):
     option, slack, rtol = SOLVES[name]
     r = fs.solve_fictdom_structured(16, 1, cg_params=_cg_params(cg),
                                     device="cpu", **option)
-    _, iters, exit_reason, _, h1 = jax_solve(jax_levels, 1,
-                                             _cg_params(jcg), **option)
+    iters, exit_reason, h1 = REFS[f"solve[{name}]"]
     assert r.exit_reason == cg.CONVERGED and exit_reason == 0
     assert abs(r.iterations - iters) <= slack, (r.iterations, iters)
     assert np.isclose(r.h1_error, h1, rtol=rtol), (r.h1_error, h1)
@@ -156,9 +183,7 @@ def test_family_float32_matches_jax_app(jax_family_f32, capsys,
     1.5e-3), so each geometry's float32 H1 must lie no further from the
     float64 H1 than twice the JAX app's does; with the switch unset the
     app runs float64."""
-    out, err = jax_family_f32.communicate(timeout=300)
-    assert jax_family_f32.returncode == 0, err[-2000:]
-    jax_line = json.loads(out.strip().splitlines()[-1])
+    jax_line = jax_family_f32
     f32, dtypes32 = _app_line(capsys, monkeypatch, "0")
     f64, dtypes64 = _app_line(capsys, monkeypatch, "1")
     assert dtypes32 == [torch.float32] * 2 and dtypes64 == [torch.float64] * 2

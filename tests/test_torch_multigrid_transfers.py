@@ -5,8 +5,10 @@ coarsest factor. The V-cycle is in tests/test_torch_multigrid.py.
 
 The JAX package's transfer-matrix builders are pure functions of (hdi, h);
 this module runs its own under jax.jit, once each (the same arrays, memoized:
-tests/torch_jax_reference.py). The other port test files hand the JAX
-package the port's, which these tests hold to its own to 1e-12."""
+tests/torch_jax_reference.py), as the store of JAX references that the
+port's test files read was written. The JAX prolongation and restriction
+applied to random grids with those matrices are read from
+tests/jax_refs/test_torch_multigrid_transfers.npz (REFS below)."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -23,10 +25,11 @@ from proton_tpu_torch.core.ops import HHODegreeInfo
 from proton_tpu_torch.cut import fictdom_structured as fs
 from proton_tpu_torch.methods import structured
 from proton_tpu_torch.solvers import multigrid
-from torch_jax_reference import jax_transfer_builders
+from torch_jax_reference import Refs, jax_transfer_builders
 
 CPU = torch.device("cpu")
 F64 = torch.float64
+REFS = Refs(__name__)
 
 
 def _close(a, ref, tol=1e-12):
@@ -57,7 +60,7 @@ def _memoized_jax_transfers_one_thread():
     under jax.jit, and keep BLAS and torch on one thread."""
     with pytest.MonkeyPatch.context() as mp, \
             threadpoolctl.threadpool_limits(1):
-        jax_transfer_builders(mp, own=True)
+        jax_transfer_builders(mp)
         threads = torch.get_num_threads()
         torch.set_num_threads(1)
         yield
@@ -88,26 +91,45 @@ def test_transfer_slot_matrices_match(k):
         _close(a, b)
 
 
+def _jax_prolongation_restriction(k):
+    """The JAX package's prolongation of a random 8^2 grid and restriction
+    of a random 16^2 one, with its own transfer matrices of the coarse
+    cell of side 1/8."""
+    fbs = k + 1
+    jhdi = JHHODegreeInfo(k + 1, k)
+    jf, jc = (jstructured.make_structured_system(n, n, fbs) for n in (16, 8))
+    rng = np.random.default_rng(k)
+    jxc, jrf = _grid(rng, fbs, 8), _grid(rng, fbs, 16)
+    jp = jmg.make_reconstruction_prolongation_cl(
+        jf, jc, jhdi, 0.125, jnp.float64, mats=_jax_mats(k))(jxc)
+    jr = jmg.make_reconstruction_restriction_cl(
+        jf, jc, jhdi, 0.125, jnp.float64, mats=_jax_mats(k))(jrf)
+    return jp + jr
+
+
+for _k in (1, 2):
+    REFS.add(f"prolongation_restriction[{_k}]", "transfer",
+             f"make_reconstruction_prolongation_cl(16^2 <- 8^2, "
+             f"HHODegreeInfo({_k + 1}, {_k}), 1/8, mats=own)(x_c) + "
+             f"make_reconstruction_restriction_cl(...)(r_f) on random grids",
+             _jax_prolongation_restriction, seed=_k, k=_k)
+
+
 @pytest.mark.parametrize("k", [1, 2])
 def test_prolongation_and_restriction_match(k):
     """Port against JAX on random grids, 16^2 <- 8^2, 1e-12. The port
     computes its own transfer matrices; the JAX side is handed the ones
     test_transfer_slot_matrices_match compares them with."""
     fbs = k + 1
-    jhdi, hdi = JHHODegreeInfo(k + 1, k), HHODegreeInfo(k + 1, k)
-    jf, jc = (jstructured.make_structured_system(n, n, fbs) for n in (16, 8))
+    hdi = HHODegreeInfo(k + 1, k)
     sf, sc = _systems(16, 8, fbs)
     rng = np.random.default_rng(k)
     jxc, jrf = _grid(rng, fbs, 8), _grid(rng, fbs, 16)
-    jp = jmg.make_reconstruction_prolongation_cl(
-        jf, jc, jhdi, 0.125, jnp.float64, mats=_jax_mats(k))(jxc)
     p = multigrid.make_reconstruction_prolongation_cl(sf, sc, hdi, 0.125)(
         convert.grid_vec_cl(jxc, CPU))
-    jr = jmg.make_reconstruction_restriction_cl(
-        jf, jc, jhdi, 0.125, jnp.float64, mats=_jax_mats(k))(jrf)
     r = multigrid.make_reconstruction_restriction_cl(sf, sc, hdi, 0.125)(
         convert.grid_vec_cl(jrf, CPU))
-    for a, b in zip(p + r, jp + jr):
+    for a, b in zip(p + r, REFS[f"prolongation_restriction[{k}]"]):
         _close(a, b)
 
 

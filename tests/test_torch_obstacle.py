@@ -3,8 +3,9 @@ run_obstacle(8, k) against the JAX solve of the same configuration
 (active-set iterations equal, alpha and beta within 1e-9), the port alone
 against the reference's stored table (apps/obstacle/results/
 convergence.txt, BASELINE.md:12-13), the callback, checkpoint and resume
-paths, and the obstacle app. The JAX solves run under jax.jit, once per
-module."""
+paths, and the obstacle app. The JAX solves (under jax.jit) are read from
+tests/jax_refs/test_torch_obstacle.npz (REFS below;
+tests/torch_jax_reference.py writes it)."""
 
 import numpy as np
 import jax
@@ -20,6 +21,9 @@ from proton_tpu_torch import convert
 from proton_tpu_torch.apps import obstacle as obstacle_app
 from proton_tpu_torch.methods import obstacle
 from proton_tpu_torch.utils import checkpoint
+from torch_jax_reference import Refs
+
+REFS = Refs(__name__)
 
 # energy-norm errors of apps/obstacle/results/convergence.txt:1-3 (the
 # table tests/test_obstacle.py holds the JAX package to)
@@ -64,9 +68,16 @@ def _jax_reference_solve(k):
         sol_fun))()
 
 
+for _k in (0, 1):
+    REFS.add(f"solve[{_k}]", "solve",
+             f"jax.jit(solve_obstacle(make_quad_mesh(min_x=-1, min_y=-1, "
+             f"Nx=8, Ny=8), {_k}, rhs, sol, zero obstacle, sol))()",
+             _jax_reference_solve, k=_k)
+
+
 @pytest.fixture(scope="module")
 def jax_results():
-    return {k: _jax_reference_solve(k) for k in (0, 1)}
+    return {k: REFS[f"solve[{k}]"] for k in (0, 1)}
 
 
 @pytest.mark.parametrize("k", [0, 1])

@@ -7,7 +7,11 @@ The ranks are spawned with torch.multiprocessing, once per world size,
 each spawn running every check; the process group meets in a file:// store
 under the test's tmp_path, so parallel test workers never share a port.
 One rank runs in this process. The spawned ranks import this module, so
-JAX is imported inside the fixtures only."""
+JAX is imported inside functions only. The JAX package's row-halo
+references (its structured operator, diagonal and condensed solve on the
+port's 16^2 arrays) are read from tests/jax_refs/test_torch_parallel.npz
+(REFS below; tests/torch_jax_reference.py writes it, with the digest of
+those arrays)."""
 
 import numpy as np
 import pytest
@@ -22,11 +26,13 @@ from proton_tpu_torch.methods import assembly, condensation, poisson, \
     structured
 from proton_tpu_torch.parallel import halo, sharding
 from proton_tpu_torch.solvers import cg
+from torch_jax_reference import Refs
 
 CPU = torch.device("cpu")
 N_SHARDED, N_HALO, K = 7, 16, 1
 CGP = cg.CGParams(convergence_threshold=1e-12, divergence_threshold=1e8,
                   max_iter=10000, apply_preconditioner=True)
+REFS = Refs(__name__)
 
 
 def _uncut_system(N, bc_zero: bool):
@@ -98,6 +104,46 @@ def _rank_checks(rank, world, init_method, out_dir):
         dist.destroy_process_group()
 
 
+def _jax_cg_params():
+    from proton_tpu.solvers import cg as jcg
+    return jcg.CGParams(convergence_threshold=1e-12,
+                        divergence_threshold=1e8, max_iter=10000,
+                        apply_preconditioner=True)
+
+
+def _jax_halo():
+    """The JAX package's structured operator on the seeded grid vector,
+    its diagonal, and its condensed structured solve on the port's 16^2
+    local matrices, loads and Dirichlet data (their digest)."""
+    import jax.numpy as jnp
+
+    from proton_tpu.methods import condensation as jcondensation
+    from proton_tpu.methods import structured as jstructured
+
+    _, dm, lc, f, g_loc = _uncut_system(N_HALO, bc_zero=False)
+    x = _random_grid(N_HALO, dm.fbs)
+    jsys = jstructured.make_structured_system(N_HALO, N_HALO, dm.fbs)
+    jS = jcondensation.condense(jnp.asarray(lc.numpy()),
+                                jnp.asarray(f.numpy()), dm.cbs).S
+    jlocal, jres = jstructured.solve_condensed_structured(
+        jsys, jnp.asarray(lc.numpy()), jnp.asarray(f.numpy()), dm.cbs,
+        jnp.asarray(g_loc.numpy()), _jax_cg_params())
+    return dict(
+        inputs=[lc, f, g_loc, x.H, x.V],
+        y=jstructured.make_structured_operator(jsys, jS)(
+            jstructured.GridVec(jnp.asarray(x.H.numpy()),
+                                jnp.asarray(x.V.numpy()))),
+        d=jstructured.structured_diagonal(jsys, jS),
+        local=jlocal, iterations=jres.iterations)
+
+
+REFS.add("halo", "solve",
+         "make_structured_operator(sys, condense(lc, f, cbs).S)(x), "
+         "structured_diagonal, solve_condensed_structured(sys, lc, f, cbs, "
+         "g_loc, tol 1e-12) on the port's uncut 16^2 k=1 arrays",
+         _jax_halo, seed=N_HALO)
+
+
 @pytest.fixture(scope="module")
 def references():
     """The single-process port's and the JAX package's numbers on the
@@ -107,13 +153,9 @@ def references():
     import proton_tpu as pt
     from proton_tpu.core.ops import HHODegreeInfo as JHHODegreeInfo
     from proton_tpu.methods import assembly as jassembly
-    from proton_tpu.methods import condensation as jcondensation
-    from proton_tpu.methods import structured as jstructured
     from proton_tpu.solvers import cg as jcg
 
-    jcgp = jcg.CGParams(convergence_threshold=1e-12,
-                        divergence_threshold=1e8, max_iter=10000,
-                        apply_preconditioner=True)
+    jcgp = _jax_cg_params()
     ref = {}
     _, dm, lc, f, g_loc = _uncut_system(N_SHARDED, bc_zero=True)
     rhs = assembly.assemble_rhs(dm, f, lc, g_loc)
@@ -140,18 +182,9 @@ def references():
     ref.update(y=structured.make_structured_operator(sys_, cond.S)(x),
                d=structured.structured_diagonal(sys_, cond.S),
                halo=(local.numpy(), res.iterations))
-    jsys = jstructured.make_structured_system(N_HALO, N_HALO, dm.fbs)
-    jS = jcondensation.condense(jnp.asarray(lc.numpy()),
-                                jnp.asarray(f.numpy()), dm.cbs).S
-    jlocal, jres = jstructured.solve_condensed_structured(
-        jsys, jnp.asarray(lc.numpy()), jnp.asarray(f.numpy()), dm.cbs,
-        jnp.asarray(g_loc.numpy()), jcgp)
-    ref.update(
-        jax_y=jstructured.make_structured_operator(jsys, jS)(
-            jstructured.GridVec(jnp.asarray(x.H.numpy()),
-                                jnp.asarray(x.V.numpy()))),
-        jax_d=jstructured.structured_diagonal(jsys, jS),
-        jax_halo=(np.asarray(jlocal), int(jres.iterations)))
+    jhalo = REFS.get("halo", inputs=[lc, f, g_loc, x.H, x.V])
+    ref.update(jax_y=jhalo.y, jax_d=jhalo.d,
+               jax_halo=(np.asarray(jhalo.local), int(jhalo.iterations)))
     return ref
 
 

@@ -4,7 +4,14 @@ diagonals and right-hand sides (1e-13), the sparse export, CG with its
 residual history and the dense solve, static condensation, solve_poisson
 with its errors, and the convergence, stabilization and polymesh apps.
 Meshes: the generated 8 x 8 quad mesh and a brick mesh of mixed 4-, 5-
-and 6-gons. Every JAX reference runs under jax.jit, once per module."""
+and 6-gons. The JAX package's references (each under jax.jit) are read
+from tests/jax_refs/test_torch_poisson.npz (REFS below;
+tests/torch_jax_reference.py writes it; its assembly functions take the
+port's local operators, whose digest the store keeps)."""
+
+import functools
+import os
+import tempfile
 
 import numpy as np
 import jax
@@ -25,8 +32,10 @@ from proton_tpu_torch.core import geometry, mesh, ops
 from proton_tpu_torch.methods import assembly, condensation, poisson
 from proton_tpu_torch.solvers import cg
 from proton_tpu_torch.tools.brick_mesh import write_brick_mesh
+from torch_jax_reference import Refs
 
 CPU = torch.device("cpu")
+REFS = Refs(__name__)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -63,24 +72,31 @@ def _close(a, ref, tol=1e-13):
     assert np.max(np.abs(a - ref)) <= tol * np.max(np.abs(ref))
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_meshes():
+    """name -> (JAX mesh, (cell, face) degrees): the 8 x 8 quad mesh at
+    k=1 and the 3 x 4 brick mesh at equal order 1."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "brick.txt")
+        write_brick_mesh(path, 3, 4)
+        jb = pt.load_poly_mesh(path)
+    return {"quad": (pt.make_quad_mesh(Nx=8, Ny=8), (2, 1)),
+            "brick": (jb, (1, 1))}
+
+
 @pytest.fixture(scope="module")
-def cases(tmp_path_factory):
+def cases():
     """name -> (JAX mesh, port mesh, (cell, face) degrees): the 8 x 8 quad
     mesh at k=1 and the 3 x 4 brick mesh at equal order 1."""
-    path = tmp_path_factory.mktemp("mesh") / "brick.txt"
-    write_brick_mesh(path, 3, 4)
-    jb = pt.load_poly_mesh(str(path))
-    jq = pt.make_quad_mesh(Nx=8, Ny=8)
-    return {"quad": (jq, convert.mesh(jq, CPU), (2, 1)),
-            "brick": (jb, convert.mesh(jb, CPU), (1, 1))}
+    return {name: (jm, convert.mesh(jm, CPU), hd)
+            for name, (jm, hd) in _jax_meshes().items()}
 
 
-@pytest.fixture(scope="module")
-def systems(cases):
+def _systems(meshes):
     """name -> (lc, loads f, Dirichlet data g_loc, dofmap) of the port."""
     rhs, sol, _ = _problem(torch)
     out = {}
-    for name, (_, tm, hd) in cases.items():
+    for name, (tm, hd) in meshes.items():
         hdi = ops.HHODegreeInfo(*hd)
         tg = geometry.cell_geometry(tm)
         lc = poisson.assemble_local(tm, tg, hdi)[1]
@@ -93,45 +109,71 @@ def systems(cases):
 
 
 @pytest.fixture(scope="module")
+def systems(cases):
+    """name -> (lc, loads f, Dirichlet data g_loc, dofmap) of the port."""
+    return _systems({name: (tm, hd) for name, (_, tm, hd) in cases.items()})
+
+
+def _jax_assembly(name):
+    """The JAX package's dofmap and face incidence of case ``name``, and
+    its assembly and condensation functions on the port's local operators
+    lc, loads f, Dirichlet data g (their digest) and a random vector x, as
+    one jax.jit call."""
+    jm, hd = _jax_meshes()[name]
+    jh = jops.HHODegreeInfo(*hd)
+    lc, f, g, _ = _systems({name: (convert.mesh(jm, CPU), hd)})[name]
+    jdm = jassembly.build_dofmap(jm, jh)
+    inc = jassembly.build_face_incidence(jm, jdm)
+    x = np.random.default_rng(1).standard_normal(jdm.n_dofs)
+    blocks = ((jdm.asm_idx[:7], jnp.asarray(lc.numpy()[:7])),
+              (jdm.asm_idx, jnp.asarray(lc.numpy())))
+
+    def run(lc, f, g, x):
+        A = jassembly.make_operator(jdm, lc)
+        sys_ = jcondensation.condense(lc, f, jdm.cbs)
+        _, nfd = jcondensation.face_dof_view(jdm)
+        xf = x[:nfd]
+        return [A(x), jassembly.operator_diagonal(jdm, lc),
+                jassembly.assemble_rhs(jdm, f, lc, g),
+                jassembly.take_local_data(jdm, x, g),
+                jassembly.make_gather_operator(jdm, inc, lc)(x),
+                jassembly.make_multi_operator(jdm.n_dofs, blocks)(x),
+                jassembly.multi_operator_diagonal(jdm.n_dofs, blocks),
+                jassembly.multi_assemble_rhs(
+                    jdm.n_dofs, [(jdm.asm_idx, g), (jdm.asm_idx, g)]),
+                *sys_,
+                jcondensation.make_condensed_operator(jdm, None,
+                                                      sys_.S)(xf),
+                jcondensation.make_condensed_operator(jdm, inc,
+                                                      sys_.S)(xf),
+                jcondensation.condensed_diagonal(jdm, sys_.S),
+                jcondensation.condensed_rhs(jdm, sys_, g),
+                jcondensation.recover_local(jdm, sys_, xf, g)]
+
+    vals = jax.jit(run)(*(jnp.asarray(a.numpy()) for a in (lc, f, g)),
+                        jnp.asarray(x))
+    return dict(inputs=[lc, f, g], dm=jdm, inc=inc, x=x, vals=vals)
+
+
+for _name in ("quad", "brick"):
+    REFS.add(f"assembly[{_name}]", "operator",
+             f"build_dofmap, build_face_incidence, and make_operator, "
+             f"operator_diagonal, assemble_rhs, take_local_data, the gather "
+             f"and two-block operators, multi_assemble_rhs, condense and the "
+             f"condensed operators, diagonal, rhs and recovery on the port's "
+             f"lc, f, g of the {_name} case and a random x, under jax.jit",
+             _jax_assembly, seed=1, name=_name)
+
+
+@pytest.fixture(scope="module")
 def jax_refs(cases, systems):
-    """Per case, the JAX package's assembly and condensation functions on
-    the port's local operators lc, loads f, Dirichlet data g and a random
-    vector x, as one jax.jit call."""
+    """Per case, the JAX package's stored dofmap, face incidence, random
+    vector x and assembly and condensation values on the port's lc, f,
+    g."""
     out = {}
-    for name, (jm, _, hd) in cases.items():
-        jh = jops.HHODegreeInfo(*hd)
-        lc, f, g, _ = systems[name]
-        jdm = jassembly.build_dofmap(jm, jh)
-        inc = jassembly.build_face_incidence(jm, jdm)
-        x = np.random.default_rng(1).standard_normal(jdm.n_dofs)
-        blocks = ((jdm.asm_idx[:7], jnp.asarray(lc.numpy()[:7])),
-                  (jdm.asm_idx, jnp.asarray(lc.numpy())))
-
-        def run(lc, f, g, x):
-            A = jassembly.make_operator(jdm, lc)
-            sys_ = jcondensation.condense(lc, f, jdm.cbs)
-            _, nfd = jcondensation.face_dof_view(jdm)
-            xf = x[:nfd]
-            return [A(x), jassembly.operator_diagonal(jdm, lc),
-                    jassembly.assemble_rhs(jdm, f, lc, g),
-                    jassembly.take_local_data(jdm, x, g),
-                    jassembly.make_gather_operator(jdm, inc, lc)(x),
-                    jassembly.make_multi_operator(jdm.n_dofs, blocks)(x),
-                    jassembly.multi_operator_diagonal(jdm.n_dofs, blocks),
-                    jassembly.multi_assemble_rhs(
-                        jdm.n_dofs, [(jdm.asm_idx, g), (jdm.asm_idx, g)]),
-                    *sys_,
-                    jcondensation.make_condensed_operator(jdm, None,
-                                                          sys_.S)(xf),
-                    jcondensation.make_condensed_operator(jdm, inc,
-                                                          sys_.S)(xf),
-                    jcondensation.condensed_diagonal(jdm, sys_.S),
-                    jcondensation.condensed_rhs(jdm, sys_, g),
-                    jcondensation.recover_local(jdm, sys_, xf, g)]
-
-        vals = jax.jit(run)(*(jnp.asarray(a.numpy()) for a in (lc, f, g)),
-                            jnp.asarray(x))
-        out[name] = (jdm, inc, x, [np.asarray(v) for v in vals])
+    for name in cases:
+        ref = REFS.get(f"assembly[{name}]", inputs=systems[name][:3])
+        out[name] = (ref.dm, ref.inc, ref.x, list(ref.vals))
     return out
 
 
@@ -292,20 +334,39 @@ def test_cg_history_and_dense_solve():
 EAGER_ITERATIONS = {0: 3, 1: 8, 2: 27}
 
 
-@pytest.fixture(scope="module")
-def jax_solutions(cases):
-    """JAX make_jitted_pipeline results (the port's PoissonSolution,
-    errors) at 8 x 8, k = 0, 1, 2, and on the brick mesh at equal order
-    1."""
+def _jax_solution(case):
+    """JAX make_jitted_pipeline (solution, errors) at 8 x 8, (k+1, k), or
+    on the brick mesh at equal order 1."""
     rhs, sol, grad = _problem(jnp)
-    runs = {k: (pt.make_quad_mesh(Nx=8, Ny=8), jops.HHODegreeInfo(k + 1, k))
-            for k in (0, 1, 2)}
-    runs["brick"] = (cases["brick"][0], jops.HHODegreeInfo(1, 1))
+    if case == "brick":
+        jm, jh = _jax_meshes()["brick"][0], jops.HHODegreeInfo(1, 1)
+    else:
+        jm, jh = pt.make_quad_mesh(Nx=8, Ny=8), jops.HHODegreeInfo(case + 1,
+                                                                  case)
+    s, e = jpoisson.make_jitted_pipeline(jh, rhs, sol, grad)(
+        jm, jassembly.build_dofmap(jm, jh))
+    return dict(solution=s, errors=list(e))
+
+
+for _key in (0, 1, 2, "brick"):
+    REFS.add(f"solution[{_key}]", "solve",
+             "make_jitted_pipeline(" + (
+                 "HHODegreeInfo(1, 1), ...)(brick mesh 3 x 4" if _key ==
+                 "brick" else f"HHODegreeInfo({_key + 1}, {_key}), ...)("
+                 "make_quad_mesh(8, 8)") + ", build_dofmap(mesh, hdi))",
+             _jax_solution, case=_key)
+
+
+@pytest.fixture(scope="module")
+def jax_solutions():
+    """The stored JAX make_jitted_pipeline results (the port's
+    PoissonSolution, errors) at 8 x 8, k = 0, 1, 2, and on the brick mesh
+    at equal order 1."""
     out = {}
-    for key, (jm, jh) in runs.items():
-        s, e = jpoisson.make_jitted_pipeline(jh, rhs, sol, grad)(
-            jm, jassembly.build_dofmap(jm, jh))
-        out[key] = (convert.poisson_solution(s, CPU), [float(v) for v in e])
+    for key in (0, 1, 2, "brick"):
+        ref = REFS[f"solution[{key}]"]
+        out[key] = (convert.poisson_solution(ref.solution, CPU),
+                    [float(v) for v in ref.errors])
     return out
 
 
@@ -424,6 +485,31 @@ def test_convergence_app_matches_jax_and_runs(tmp_path, monkeypatch, capsys):
     assert "Testing degree 1" in capsys.readouterr().out
 
 
+def _jax_stabilization(k):
+    """test_stabilization(4, k)'s quantity from the JAX package's
+    operators, under jax.jit."""
+    hdi = jops.HHODegreeInfo(k, k)
+    jm = pt.make_quad_mesh(Nx=4, Ny=4)
+    f = lambda p: 2.0 * PI ** 2 * jnp.sin(2 * PI * p[..., 0]) * \
+        jnp.sin(2 * PI * p[..., 1])
+
+    def value(m):
+        g = jgeometry.cell_geometry(m)
+        oper, _ = jhho.hho_laplacian(m, g, hdi)
+        S = jhho.fancy_stabilization(m, g, hdi, oper)
+        proj = jops.project_function(m, g, hdi, f)
+        return jnp.sqrt(proj[0] @ S[0] @ proj[0])
+
+    return jax.jit(value)(jm)
+
+
+for _k in (1, 2):
+    REFS.add(f"stabilization[{_k}]", "operator",
+             f"sqrt(proj_0 . fancy_stabilization_0 . proj_0) on "
+             f"make_quad_mesh(4, 4), HHODegreeInfo({_k}, {_k})",
+             _jax_stabilization, k=_k)
+
+
 def test_stabilization_app_matches_jax(capsys):
     """test_stabilization(4, k) against the same quantity from the JAX
     package's operators (jitted), 1e-12; the CLI on the CPU prints one
@@ -431,19 +517,7 @@ def test_stabilization_app_matches_jax(capsys):
     cell, N = 16 -> 32) near 4, 4, 4, 6, 6 (k = 5 reaches the rounding
     floor, as in the reference)."""
     for k in (1, 2):
-        hdi = jops.HHODegreeInfo(k, k)
-        jm = pt.make_quad_mesh(Nx=4, Ny=4)
-        f = lambda p: 2.0 * PI ** 2 * jnp.sin(2 * PI * p[..., 0]) * \
-            jnp.sin(2 * PI * p[..., 1])
-
-        def value(m):
-            g = jgeometry.cell_geometry(m)
-            oper, _ = jhho.hho_laplacian(m, g, hdi)
-            S = jhho.fancy_stabilization(m, g, hdi, oper)
-            proj = jops.project_function(m, g, hdi, f)
-            return jnp.sqrt(proj[0] @ S[0] @ proj[0])
-
-        ref = float(jax.jit(value)(jm))
+        ref = float(REFS[f"stabilization[{k}]"])
         assert np.isclose(stabilization_test.test_stabilization(4, k, "cpu"),
                           ref, rtol=1e-12)
     assert stabilization_test.main(["--device", "cpu"]) == 0

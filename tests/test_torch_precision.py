@@ -5,18 +5,18 @@ pieces of the modes (CG's warm start, segments and float32 run, the
 float32 classification, the row-major splice, the fully assembled mixed
 level, the float32 V-cycle) are in tests/test_torch_precision_pieces.py.
 
-Every comparison with the JAX package runs it live on the same inputs,
-each JAX reference computed once: the level builds, the cut class and
-one end-to-end mixed solve (k=2, where the mixed system's H1 error
-differs from the float64 one by 3e-3: the JAX package's _solve_jit over
-its mixed levels, the fine one shared with the level tests). The JAX
-package's multigrid transfer builders answer with the port's arrays
-(tests/torch_jax_reference.py). The other end-to-end solves are held, in
-addition, to the JAX package's numbers in PRECISION_GATES, from
-scripts/precision_jax_gates.py: each case there also has a live check
-of its pieces here or in test_torch_precision_pieces.py (a JAX solve
-costs 60-90 s of compilation on one CPU core, more than this file may
-take for each)."""
+The JAX package's side of each comparison is read from
+tests/jax_refs/test_torch_precision.npz (REFS below;
+tests/torch_jax_reference.py writes it, running the JAX package alone on
+the same inputs): the level builds, the cut class and one end-to-end
+mixed solve (k=2, where the mixed system's H1 error differs from the
+float64 one by 3e-3: the JAX package's _solve_jit over its mixed levels,
+the fine one that of the level tests). The other end-to-end solves are
+held, in addition, to the JAX package's numbers in PRECISION_GATES, from
+scripts/precision_jax_gates.py: each case there also has a check of its
+pieces here or in test_torch_precision_pieces.py."""
+
+import functools
 
 import numpy as np
 import pytest
@@ -29,10 +29,11 @@ from proton_tpu.solvers import cg as jcg
 from proton_tpu_torch.core.ops import HHODegreeInfo
 from proton_tpu_torch.cut import fictdom_structured as fs
 from proton_tpu_torch.solvers import cg
-from torch_jax_reference import jax_solve, jax_transfer_builders
+from torch_jax_reference import Refs, jax_solve_ref
 
 CPU = torch.device("cpu")
 N = 16
+REFS = Refs(__name__)
 
 # The JAX package, CPU, x64, solve_fictdom_structured(16, k, ...,
 # use_pallas=False), divergence 1e8, max_iter 50000: (iterations, exit
@@ -77,11 +78,8 @@ MIXED_H1_RTOL = {1: 1e-5, 2: 1e-3}
 
 @pytest.fixture(autouse=True, scope="module")
 def _one_thread():
-    """BLAS and torch on one thread (see tests/test_torch_solve.py), and
-    the JAX package's transfer builders answered by the port's."""
-    with threadpoolctl.threadpool_limits(1), \
-            pytest.MonkeyPatch.context() as mp:
-        jax_transfer_builders(mp)
+    """BLAS and torch on one thread (see tests/test_torch_solve.py)."""
+    with threadpoolctl.threadpool_limits(1):
         threads = torch.get_num_threads()
         torch.set_num_threads(1)
         yield
@@ -101,21 +99,52 @@ def _close(a, ref, tol):
     assert err <= tol * np.max(np.abs(ref)), err / np.max(np.abs(ref))
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_mixed_level(k):
+    """The JAX package's lean mixed 16^2 level, with its right-hand side
+    (build_level(mixed=True, fitted="lean"))."""
+    return jfs.build_level(N, JHHODegreeInfo(k + 1, k), jfs.default_problem(),
+                           jfs.nitsche_eta(k), 4, True, use_pallas=False,
+                           with_rhs=True, fitted="lean")
+
+
+def _jax_mixed_level_fields(k):
+    lev = _jax_mixed_level(k)
+    return dict(irr_ids=lev.irr_ids, cut_ids=lev.cut_ids,
+                cond={f: getattr(lev.cond, f)
+                      for f in ("dS", "fT", "bF", "X_i", "y_i")})
+
+
+def _jax_cut64(k):
+    """JAX _cut64_impl(keep_f64=True) on its mixed level's cut batch."""
+    return tuple(jfs._cut64_impl(
+        _jax_mixed_level(k).batch, hdi=JHHODegreeInfo(k + 1, k),
+        problem=jfs.default_problem(), eta=jfs.nitsche_eta(k),
+        with_rhs=True, keep_f64=True))
+
+
+for _k in (1, 2):
+    REFS.add(f"mixed_level[{_k}]", "level",
+             f"build_level(16, HHODegreeInfo({_k + 1}, {_k}), "
+             f"default_problem(), nitsche_eta({_k}), 4, True, "
+             f"use_pallas=False, with_rhs=True, fitted='lean')",
+             _jax_mixed_level_fields, k=_k)
+    REFS.add(f"cut64[{_k}]", "cut class",
+             f"_cut64_impl(level.batch, HHODegreeInfo({_k + 1}, {_k}), "
+             f"default_problem(), nitsche_eta({_k}), with_rhs=True, "
+             f"keep_f64=True) on mixed_level[{_k}]'s batch", _jax_cut64,
+             k=_k)
+
+
 @pytest.fixture(scope="module")
 def mixed_levels():
-    """{k: (the port's, the JAX package's lean mixed 16^2 level)}, with
-    right-hand sides (JAX: build_level(mixed=True, fitted="lean"))."""
-    out = {}
-    for k in (1, 2):
-        out[k] = (
-            fs.build_level(N, HHODegreeInfo(k + 1, k), fs.default_problem(),
-                           fs.nitsche_eta(k), 4, device=CPU, fitted="lean",
-                           mixed=True),
-            jfs.build_level(N, JHHODegreeInfo(k + 1, k),
-                            jfs.default_problem(), jfs.nitsche_eta(k), 4,
-                            True, use_pallas=False, with_rhs=True,
-                            fitted="lean"))
-    return out
+    """{k: (the port's, the JAX package's stored lean mixed 16^2 level)},
+    with right-hand sides (JAX: build_level(mixed=True, fitted="lean"))."""
+    return {k: (fs.build_level(N, HHODegreeInfo(k + 1, k),
+                               fs.default_problem(), fs.nitsche_eta(k), 4,
+                               device=CPU, fitted="lean", mixed=True),
+                REFS[f"mixed_level[{k}]"])
+            for k in (1, 2)}
 
 
 @pytest.mark.parametrize("k", [1, 2])
@@ -154,13 +183,11 @@ def test_cut64_matches_jax(mixed_levels, k):
     within 5e-6 (measured 7.9e-7: the sliver blocks' condition number
     times eps); the rounded copy is the float32 cast of the float64
     one."""
-    lev, jlev = mixed_levels[k]
+    lev, _ = mixed_levels[k]
     hdi, eta = HHODegreeInfo(k + 1, k), fs.nitsche_eta(k)
     sub = fs.cut64_condensed(lev.batch, hdi, fs.default_problem(), eta,
                              True, keep_f64=True)
-    jsub = jfs._cut64_impl(jlev.batch, hdi=JHHODegreeInfo(k + 1, k),
-                           problem=jfs.default_problem(), eta=eta,
-                           with_rhs=True, keep_f64=True)
+    jsub = REFS[f"cut64[{k}]"]
     for name, a, b, tol in zip(sub._fields, sub, jsub,
                                (1e-9, 2e-9, 5e-6, 5e-6)):
         assert a.dtype == torch.float64, name
@@ -187,16 +214,30 @@ def _solve(name, **over):
 LIVE_MG_COARSEST = N
 
 
-@pytest.fixture(scope="module")
-def jax_mixed_k2(mixed_levels):
-    """The JAX package's mixed_k2 solve with mg_coarsest=LIVE_MG_COARSEST,
-    live: (iterations, exit code, H1 error, local dofs). Its level is
-    mixed_levels' (the one its solve_fictdom_structured builds)."""
+def _jax_mixed_k2():
+    """The JAX package's mixed_k2 solve with mg_coarsest=LIVE_MG_COARSEST
+    over the mixed level of _jax_mixed_level (the one its
+    solve_fictdom_structured builds)."""
     k, tol, kw = CASES["mixed_k2"]
     assert kw == dict(mixed=True, fitted="lean")
-    local, iters, exit_code, _, h1 = jax_solve(
-        {N: mixed_levels[k][1]}, k, jcg.CGParams(**_cgp(tol)),
-        mg_coarsest=LIVE_MG_COARSEST)
+    return jax_solve_ref({N: _jax_mixed_level(k)}, k,
+                         jcg.CGParams(**_cgp(tol)),
+                         keep=("local", "iterations", "exit_reason", "h1"),
+                         mg_coarsest=LIVE_MG_COARSEST)
+
+
+REFS.add("mixed_k2", "solve",
+         "solve_fictdom_structured(16, 2, mixed=True, fitted='lean', "
+         "mg_coarsest=16, use_pallas=False), CG tol 1e-9: _solve_jit over "
+         "mixed_level[2]", _jax_mixed_k2)
+
+
+@pytest.fixture(scope="module")
+def jax_mixed_k2():
+    """The JAX package's stored mixed_k2 solve with
+    mg_coarsest=LIVE_MG_COARSEST: (iterations, exit code, H1 error, local
+    dofs)."""
+    local, iters, exit_code, h1 = REFS["mixed_k2"]
     return iters, exit_code, h1, np.asarray(local)
 
 

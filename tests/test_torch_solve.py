@@ -2,10 +2,14 @@
 float64: condensation, the structured operator and block-Jacobi on random
 data, CG, and the end-to-end fictdom gates.
 
-The JAX solves run its _solve_jit over the levels its
-solve_fictdom_structured builds, each level built once per module
-(tests/torch_jax_reference.py), with its transfer builders answered by
-the port's."""
+The JAX package's side of every comparison that costs it more than about
+2 s is read from tests/jax_refs/test_torch_solve.npz (REFS below;
+tests/torch_jax_reference.py writes it, running the JAX package alone on
+the same seeded inputs): its CG runs and operator applies on the random
+systems, and its solves, each its _solve_jit over the levels its
+solve_fictdom_structured builds."""
+
+import functools
 
 import numpy as np
 import jax.numpy as jnp
@@ -21,19 +25,17 @@ from proton_tpu_torch import convert
 from proton_tpu_torch.cut import fictdom_structured as fs
 from proton_tpu_torch.methods import cells_last, structured
 from proton_tpu_torch.solvers import cg
-from torch_jax_reference import jax_solve, jax_transfer_builders
+from torch_jax_reference import Refs, jax_solve_ref
 
 CPU = torch.device("cpu")
+REFS = Refs(__name__)
 
 
 @pytest.fixture(autouse=True, scope="module")
 def _one_thread():
     """BLAS and torch on one thread: with a pool per core in every test
-    worker the cores are oversubscribed many times over. The JAX
-    package's transfer builders answer with the port's arrays."""
-    with threadpoolctl.threadpool_limits(1), \
-            pytest.MonkeyPatch.context() as mp:
-        jax_transfer_builders(mp)
+    worker the cores are oversubscribed many times over."""
+    with threadpoolctl.threadpool_limits(1):
         threads = torch.get_num_threads()
         torch.set_num_threads(1)
         yield
@@ -68,74 +70,127 @@ def test_condense_and_recover_match(cbs, fbs):
 
 
 def _system(Nx, Ny, fbs, seed):
-    """Random SPD local Schur matrices on an Nx x Ny face grid, in both
-    packages, plus a random grid vector."""
+    """Random SPD local Schur matrices on an Nx x Ny face grid, the JAX
+    package's structured system, plus a random grid vector (JAX)."""
     rng = np.random.default_rng(seed)
     nfd = 4 * fbs
     S = _spd_cells(rng, nfd, Nx * Ny, 1.0)
     jsys = jstructured.make_structured_system(Nx, Ny, fbs)
-    sys_ = structured.make_structured_system(Nx, Ny, fbs, device=CPU)
     x = jcl.GridVecCL(jnp.asarray(rng.standard_normal((fbs, Ny + 1, Nx))),
                       jnp.asarray(rng.standard_normal((fbs, Ny, Nx + 1))))
-    return jsys, sys_, S, x
+    return jsys, S, x
 
 
-@pytest.mark.parametrize("fbs", [1, 2, 3])
-def test_structured_operator_and_block_jacobi_match(fbs):
-    """Operator apply, diagonal, block-Jacobi, rhs and recovery on random
-    face grids (7 x 5 cells), 1e-12."""
-    jsys, sys_, S, jx = _system(7, 5, fbs, fbs)
-    x = convert.grid_vec_cl(jx, CPU)
-    St = torch.as_tensor(S)
-    jy = jcl.make_structured_operator_cl(jsys, jnp.asarray(S))(jx)
-    y = cells_last.make_structured_operator_cl(sys_, St)(x)
-    for a, b in zip(y, jy):
-        _close(a.numpy(), b)
-    for a, b in zip(cells_last.structured_diagonal_cl(sys_, St),
-                    jcl.structured_diagonal_cl(jsys, jnp.asarray(S))):
-        _close(a.numpy(), b)
-    jz = jcl.block_jacobi_preconditioner_cl(jsys, jnp.asarray(S))(jx)
-    z = cells_last.block_jacobi_preconditioner_cl(sys_, St)(x)
-    for a, b in zip(z, jz):
-        _close(a.numpy(), b)
-
+def _jax_structured(fbs):
+    """The JAX package's operator apply, diagonal, block-Jacobi, rhs and
+    recovery on the random 7 x 5 face grid of fbs."""
+    jsys, S, jx = _system(7, 5, fbs, fbs)
     rng = np.random.default_rng(10 + fbs)
     cbs, C = 3, 35
     cond = jcl.CondensedCL(jnp.asarray(S),
                            jnp.asarray(rng.standard_normal((4 * fbs, C))),
                            jnp.asarray(rng.standard_normal((cbs * 4 * fbs, C))),
                            jnp.asarray(rng.standard_normal((cbs, C))))
+    g = jnp.asarray(rng.standard_normal((4 * fbs, C)))
+    return dict(
+        y=jcl.make_structured_operator_cl(jsys, jnp.asarray(S))(jx),
+        diag=jcl.structured_diagonal_cl(jsys, jnp.asarray(S)),
+        z=jcl.block_jacobi_preconditioner_cl(jsys, jnp.asarray(S))(jx),
+        rhs=jcl.structured_rhs_cl(jsys, cond, g),
+        recover=jcl.solve_recover_cl(jsys, cond, jx, g))
+
+
+for _fbs in (1, 2, 3):
+    REFS.add(f"structured[{_fbs}]", "operator",
+             f"make_structured_operator_cl, structured_diagonal_cl, "
+             f"block_jacobi_preconditioner_cl, structured_rhs_cl, "
+             f"solve_recover_cl on a random 7 x 5 grid, fbs={_fbs}",
+             _jax_structured, seed=[_fbs, 10 + _fbs], fbs=_fbs)
+
+
+@pytest.mark.parametrize("fbs", [1, 2, 3])
+def test_structured_operator_and_block_jacobi_match(fbs):
+    """Operator apply, diagonal, block-Jacobi, rhs and recovery on random
+    face grids (7 x 5 cells), 1e-12."""
+    _, S, jx = _system(7, 5, fbs, fbs)
+    sys_ = structured.make_structured_system(7, 5, fbs, device=CPU)
+    ref = REFS[f"structured[{fbs}]"]
+    x = convert.grid_vec_cl(jx, CPU)
+    St = torch.as_tensor(S)
+    y = cells_last.make_structured_operator_cl(sys_, St)(x)
+    for a, b in zip(y, ref.y):
+        _close(a.numpy(), b)
+    for a, b in zip(cells_last.structured_diagonal_cl(sys_, St), ref.diag):
+        _close(a.numpy(), b)
+    z = cells_last.block_jacobi_preconditioner_cl(sys_, St)(x)
+    for a, b in zip(z, ref.z):
+        _close(a.numpy(), b)
+
+    rng = np.random.default_rng(10 + fbs)
+    cbs, C = 3, 35
+    tcond = cells_last.CondensedCL(
+        St, torch.as_tensor(rng.standard_normal((4 * fbs, C))),
+        torch.as_tensor(rng.standard_normal((cbs * 4 * fbs, C))),
+        torch.as_tensor(rng.standard_normal((cbs, C))))
     g = rng.standard_normal((4 * fbs, C))
-    tcond = convert.condensed_cl(cond, CPU)
     for a, b in zip(cells_last.structured_rhs_cl(sys_, tcond,
                                                  torch.as_tensor(g)),
-                    jcl.structured_rhs_cl(jsys, cond, jnp.asarray(g))):
+                    ref.rhs):
         _close(a.numpy(), b)
     _close(cells_last.solve_recover_cl(sys_, tcond, x,
                                        torch.as_tensor(g)).numpy(),
-           jcl.solve_recover_cl(jsys, cond, jx, jnp.asarray(g)))
+           ref.recover)
+
+
+def _cg_kw(precond, max_iter=1000):
+    return dict(convergence_threshold=1e-11, divergence_threshold=1e8,
+                max_iter=max_iter, apply_preconditioner=precond == "jacobi")
+
+
+def _jax_cg(precond):
+    """The JAX package's CG on the random 9 x 8 system with ``precond``,
+    to convergence and stopped at max_iter=3."""
+    jsys, S, jb = _system(9, 8, 2, 5)
+    jA = jcl.make_structured_operator_cl(jsys, jnp.asarray(S))
+    jpre = jdiag = None
+    if precond == "block_jacobi":
+        jpre = jcl.block_jacobi_preconditioner_cl(jsys, jnp.asarray(S))
+    if precond == "jacobi":
+        jdiag = jcl.structured_diagonal_cl(jsys, jnp.asarray(S))
+    out = {}
+    for name, max_iter in (("converged", 1000), ("max_iter", 3)):
+        r = jcg.conjugated_gradient(jA, jb, jdiag,
+                                    jcg.CGParams(**_cg_kw(precond, max_iter)),
+                                    precond=jpre)
+        out[name] = dict(x=r.x, iterations=r.iterations,
+                         exit_reason=r.exit_reason,
+                         rel_residual=r.rel_residual)
+    return out
+
+
+for _p in ("block_jacobi", "jacobi", "none"):
+    REFS.add(f"cg[{_p}]", "solve",
+             f"conjugated_gradient on the random 9 x 8 system (fbs 2), "
+             f"precond {_p}, tol 1e-11, max_iter 1000 and 3", _jax_cg,
+             seed=5, precond=_p)
 
 
 @pytest.mark.parametrize("precond", ["block_jacobi", "jacobi", "none"])
 def test_cg_matches(precond):
     """Same operator, same rhs: equal exit code and iteration count, x
     within 1e-10; and the max_iter exit."""
-    jsys, sys_, S, jb = _system(9, 8, 2, 5)
+    _, S, jb = _system(9, 8, 2, 5)
+    sys_ = structured.make_structured_system(9, 8, 2, device=CPU)
     b = convert.grid_vec_cl(jb, CPU)
     St = torch.as_tensor(S)
-    jA = jcl.make_structured_operator_cl(jsys, jnp.asarray(S))
     A = cells_last.make_structured_operator_cl(sys_, St)
-    kw = dict(convergence_threshold=1e-11, divergence_threshold=1e8,
-              max_iter=1000, apply_preconditioner=precond == "jacobi")
-    jpre = pre = jdiag = diag = None
+    kw = _cg_kw(precond)
+    pre = diag = None
     if precond == "block_jacobi":
-        jpre = jcl.block_jacobi_preconditioner_cl(jsys, jnp.asarray(S))
         pre = cells_last.block_jacobi_preconditioner_cl(sys_, St)
     if precond == "jacobi":
-        jdiag = jcl.structured_diagonal_cl(jsys, jnp.asarray(S))
         diag = cells_last.structured_diagonal_cl(sys_, St)
-    jr = jcg.conjugated_gradient(jA, jb, jdiag, jcg.CGParams(**kw),
-                                 precond=jpre)
+    jr = REFS[f"cg[{precond}]"].converged
     r = cg.conjugated_gradient(A, b, diag, cg.CGParams(**kw), precond=pre)
     assert r.exit_reason == int(jr.exit_reason) == cg.CONVERGED
     assert r.iterations == int(jr.iterations)
@@ -145,8 +200,7 @@ def test_cg_matches(precond):
         _close(a.numpy(), c, 1e-10)
 
     kw.update(max_iter=3)
-    jr = jcg.conjugated_gradient(jA, jb, jdiag, jcg.CGParams(**kw),
-                                 precond=jpre)
+    jr = REFS[f"cg[{precond}]"].max_iter
     r = cg.conjugated_gradient(A, b, diag, cg.CGParams(**kw), precond=pre)
     assert r.exit_reason == int(jr.exit_reason) == cg.MAX_ITER_REACHED
     assert r.iterations == int(jr.iterations) == 5
@@ -171,12 +225,25 @@ def _cgp(tol=1e-10):
                 max_iter=50000, apply_preconditioner=True)
 
 
+@functools.lru_cache(maxsize=None)
 def _jax_level(N, k, fitted):
     """The JAX package's fine level as its solve_fictdom_structured(N, k,
     fitted=..., mixed=False) builds it."""
     return jfs.build_level(N, JHHODegreeInfo(k + 1, k), jfs.default_problem(),
                            jfs.nitsche_eta(k), 4, False, False,
                            with_rhs=True, fitted=fitted)
+
+
+def _jax_full_solve(N, k):
+    return jax_solve_ref({N: _jax_level(N, k, "full")}, k,
+                         jcg.CGParams(**_cgp(1e-12)), precond="block_jacobi")
+
+
+for _N, _k in ((16, 1), (16, 2)):
+    REFS.add(f"end_to_end[{_N}-{_k}]", "solve",
+             f"solve_fictdom_structured({_N}, {_k}, precond='block_jacobi', "
+             f"fitted='full', mixed=False, use_pallas=False), CG tol 1e-12: "
+             f"_solve_jit over its build_level", _jax_full_solve, N=_N, k=_k)
 
 
 @pytest.mark.parametrize("N,k", [(16, 1), (16, 2)])
@@ -198,9 +265,7 @@ def test_end_to_end_gates(N, k):
                                     fitted="full",
                                     cg_params=cg.CGParams(**_cgp(1e-12)),
                                     device="cpu")
-    jlocal, _, jexit, _, jh1 = jax_solve(
-        {N: _jax_level(N, k, "full")}, k, jcg.CGParams(**_cgp(1e-12)),
-        precond="block_jacobi")
+    jlocal, _, jexit, _, jh1 = REFS[f"end_to_end[{N}-{k}]"]
     assert r.exit_reason == jexit == cg.CONVERGED
     diff = np.abs(r.local.numpy() - np.asarray(jlocal))
     # The cell blocks of sliver cut cells reach cond ~6e7 at k=2 (~7e4 at
@@ -251,24 +316,25 @@ def test_jacobi_solve_and_unported_options():
 UNIFORM_MG_COARSEST = 16
 
 
-@pytest.fixture(scope="module")
-def uniform_pair():
-    """The JAX package's 16^2 k=1 solves with fitted="uniform" (its
-    default), precond "mg" (mg_coarsest=UNIFORM_MG_COARSEST) and
-    "jacobi", CG tol 1e-10: (local, iterations, exit code, H1). Both
-    solve the same level, built once."""
-    fine = _jax_level(16, 1, "uniform")
-    out = {}
-    for precond, kw in (("mg", dict(mg_coarsest=UNIFORM_MG_COARSEST)),
-                        ("jacobi", {})):
-        local, iters, exit_code, _, h1 = jax_solve(
-            {16: fine}, 1, jcg.CGParams(**_cgp()), precond=precond, **kw)
-        out[precond] = (local, iters, exit_code, h1)
-    return out
+def _jax_uniform_solve(precond):
+    """The JAX package's 16^2 k=1 solve with fitted="uniform" (its
+    default) and ``precond``, CG tol 1e-10; under "mg" with
+    mg_coarsest=UNIFORM_MG_COARSEST. Both solve the same level."""
+    kw = dict(mg_coarsest=UNIFORM_MG_COARSEST) if precond == "mg" else {}
+    return jax_solve_ref({16: _jax_level(16, 1, "uniform")}, 1,
+                         jcg.CGParams(**_cgp()), precond=precond, **kw)
+
+
+for _p in ("mg", "jacobi"):
+    REFS.add(f"uniform[{_p}]", "solve",
+             f"solve_fictdom_structured(16, 1, fitted='uniform', "
+             f"precond={_p!r}" + (", mg_coarsest=16" if _p == "mg" else "")
+             + ", mixed=False, use_pallas=False), CG tol 1e-10",
+             _jax_uniform_solve, precond=_p)
 
 
 @pytest.mark.parametrize("precond", ["mg", "jacobi"])
-def test_fitted_uniform_matches_jax(uniform_pair, precond):
+def test_fitted_uniform_matches_jax(precond):
     """fitted="uniform" builds the lean system: its solve equals the lean
     one exactly, and the JAX package's fitted="uniform" solve (the unit
     cell broadcast over the mesh) to local dofs 1e-8, H1 rtol 1e-6 and
@@ -290,7 +356,7 @@ def test_fitted_uniform_matches_jax(uniform_pair, precond):
         other = fs.solve_fictdom_structured(16, 1, fitted="full", **kw)
         assert abs(r.iterations - other.iterations) <= 2
         _close(r.local.numpy(), other.local.numpy(), 1e-8)
-    jlocal, jiters, jexit, jh1 = uniform_pair[precond]
+    jlocal, jiters, jexit, _, jh1 = REFS[f"uniform[{precond}]"]
     assert r.exit_reason == jexit == cg.CONVERGED
     assert abs(r.iterations - jiters) <= 2
     assert np.isclose(r.h1_error, jh1, rtol=1e-6)

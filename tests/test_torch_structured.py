@@ -1,7 +1,11 @@
 """The port's row-major face-grid API (methods/structured.py) against
 proton_tpu on the CPU, float64: every function on seeded random data at
 8^2 (1e-12), and solve_condensed_structured on the fictdom operators of
-the 16^2 mesh (local dofs 1e-10, iterations within 2)."""
+the 16^2 mesh (local dofs 1e-10, iterations within 2).
+
+The JAX package's grid functions on the seeded data are read from
+tests/jax_refs/test_torch_structured.npz (REFS below;
+tests/torch_jax_reference.py writes it on the same inputs)."""
 
 import numpy as np
 import jax
@@ -19,9 +23,14 @@ from proton_tpu_torch.cut import fictdom_structured as fs
 from proton_tpu_torch.cut import methods as cut_methods
 from proton_tpu_torch.methods import assembly, condensation, structured
 from proton_tpu_torch.solvers import cg
+from torch_jax_reference import Refs
 
 CPU = torch.device("cpu")
 N8, FBS = 8, 2
+REFS = Refs(__name__)
+# the patch smoother's cells: a ring around the middle and two boundary
+# cells, with shared faces and Dirichlet slots
+PATCH_IDS = np.array([0, 7, 18, 19, 20, 26, 28, 34, 35, 36, 63])
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -47,56 +56,93 @@ def _close_grids(x, jx, tol=1e-12):
         _close(a, b, tol)
 
 
-@pytest.fixture(scope="module")
-def data():
+def _random_data():
     """Random SPD local Schur matrices [C, nfd, nfd] on the 8 x 8 grid and
-    a random row-major grid vector, in both packages."""
+    a random row-major grid vector (H, V)."""
     rng = np.random.default_rng(8)
     nfd, C = 4 * FBS, N8 * N8
     B = rng.standard_normal((C, nfd, nfd))
     S = B @ np.transpose(B, (0, 2, 1)) + nfd * np.eye(nfd)
     H = rng.standard_normal((N8 + 1, N8, FBS))
     V = rng.standard_normal((N8, N8 + 1, FBS))
+    return S, H, V
+
+
+def _scatter_inputs():
+    rng = np.random.default_rng(1)
+    return [rng.standard_normal((N8 * N8, 4 * width))
+            for width in (FBS, FBS * FBS)]
+
+
+def _jax_grid_functions():
+    """The JAX package's grid gather, scatters and mask, operator,
+    diagonal, face blocks, block-Jacobi and patch smoother on the random
+    data."""
+    S, H, V = _random_data()
+    jsys = jstructured.make_structured_system(N8, N8, FBS)
+    jx, jS = jstructured.GridVec(jnp.asarray(H), jnp.asarray(V)), \
+        jnp.asarray(S)
     return dict(
-        S=S, jsys=jstructured.make_structured_system(N8, N8, FBS),
+        gather=jstructured.grid_gather(jsys, jx),
+        scatter=[jstructured.grid_scatter(jsys, jnp.asarray(c))
+                 for c in _scatter_inputs()],
+        mask=jstructured._mask(jsys, jx),
+        operator=jstructured.make_structured_operator(jsys, jS)(jx),
+        diagonal=jstructured.structured_diagonal(jsys, jS),
+        face_blocks=jstructured.assembled_face_blocks(jsys, jS),
+        block_jacobi=jstructured.block_jacobi_preconditioner(jsys, jS)(jx),
+        patch=jstructured.make_cut_patch_smoother(jsys, jS, PATCH_IDS)(jx))
+
+
+REFS.add("grid_functions", "operator",
+         "grid_gather, grid_scatter, _mask, make_structured_operator, "
+         "structured_diagonal, assembled_face_blocks, "
+         "block_jacobi_preconditioner, make_cut_patch_smoother(PATCH_IDS) "
+         "on random SPD data at 8^2, fbs 2", _jax_grid_functions,
+         seed=[8, 1])
+
+
+@pytest.fixture(scope="module")
+def data():
+    """Random SPD local Schur matrices [C, nfd, nfd] on the 8 x 8 grid and
+    a random row-major grid vector in the port, and the JAX package's
+    stored functions of them."""
+    S, H, V = _random_data()
+    return dict(
+        S=S, ref=REFS["grid_functions"],
+        jsys=jstructured.make_structured_system(N8, N8, FBS),
         sys=structured.make_structured_system(N8, N8, FBS, device=CPU),
-        jx=jstructured.GridVec(jnp.asarray(H), jnp.asarray(V)),
         x=structured.GridVec(torch.as_tensor(H), torch.as_tensor(V)))
 
 
 def test_gather_scatter_mask_match(data):
-    jsys, sys_, jx, x = data["jsys"], data["sys"], data["jx"], data["x"]
-    _close(structured.grid_gather(sys_, x), jstructured.grid_gather(jsys, jx))
-    rng = np.random.default_rng(1)
-    for width in (FBS, FBS * FBS):
-        c = rng.standard_normal((N8 * N8, 4 * width))
-        _close_grids(structured.grid_scatter(sys_, torch.as_tensor(c)),
-                     jstructured.grid_scatter(jsys, jnp.asarray(c)))
-    _close_grids(structured._mask(sys_, x), jstructured._mask(jsys, jx))
+    ref, sys_, x = data["ref"], data["sys"], data["x"]
+    _close(structured.grid_gather(sys_, x), ref.gather)
+    for c, jc in zip(_scatter_inputs(), ref.scatter):
+        _close_grids(structured.grid_scatter(sys_, torch.as_tensor(c)), jc)
+    _close_grids(structured._mask(sys_, x), ref.mask)
 
 
 def test_operator_diagonal_and_face_blocks_match(data):
-    jsys, sys_, jx, x = data["jsys"], data["sys"], data["jx"], data["x"]
-    S, jS = torch.as_tensor(data["S"]), jnp.asarray(data["S"])
+    ref, sys_, x = data["ref"], data["sys"], data["x"]
+    S = torch.as_tensor(data["S"])
     _close_grids(structured.make_structured_operator(sys_, S)(x),
-                 jstructured.make_structured_operator(jsys, jS)(jx))
-    _close_grids(structured.structured_diagonal(sys_, S),
-                 jstructured.structured_diagonal(jsys, jS))
+                 ref.operator)
+    _close_grids(structured.structured_diagonal(sys_, S), ref.diagonal)
     for a, b in zip(structured.assembled_face_blocks(sys_, S),
-                    jstructured.assembled_face_blocks(jsys, jS)):
+                    ref.face_blocks):
         _close(a, b)
     _close_grids(structured.block_jacobi_preconditioner(sys_, S)(x),
-                 jstructured.block_jacobi_preconditioner(jsys, jS)(jx))
+                 ref.block_jacobi)
 
 
 def test_cut_patch_smoother_matches(data):
     """The patch smoother over a set of cells with shared faces and
     Dirichlet slots (a ring around the middle and two boundary cells)."""
-    jsys, sys_, jx, x = data["jsys"], data["sys"], data["jx"], data["x"]
-    ids = np.array([0, 7, 18, 19, 20, 26, 28, 34, 35, 36, 63])
-    S, jS = torch.as_tensor(data["S"]), jnp.asarray(data["S"])
-    _close_grids(structured.make_cut_patch_smoother(sys_, S, ids)(x),
-                 jstructured.make_cut_patch_smoother(jsys, jS, ids)(jx))
+    ref, sys_, x = data["ref"], data["sys"], data["x"]
+    S = torch.as_tensor(data["S"])
+    _close_grids(structured.make_cut_patch_smoother(sys_, S, PATCH_IDS)(x),
+                 ref.patch)
 
 
 def test_structured_rhs_matches(data):
