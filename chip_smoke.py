@@ -382,6 +382,28 @@ def line(tag: str, **kv) -> None:
           flush=True)
 
 
+_STAGE = re.compile(r"mg_([a-z]+)_n\d+_s$")
+_CG_TOTALS = ("cg_apply_s", "cg_precond_s", "cg_wait_s", "cg_self_s",
+              "cg_precond_calls", "solve_self_s")
+
+
+def span_summary(t: dict) -> dict:
+    """A timings dict as a line prints it: the phases' seconds, CG's
+    totals (cg_apply_s, cg_precond_s, cg_wait_s, cg_self_s,
+    cg_precond_calls) and solve_self_s, and each V-cycle stage's seconds
+    summed over the levels (mg_<stage>_s), rounded."""
+    out = {k: v for k, v in t.items()
+           if k.endswith("_s") and not k.endswith("_self_s") and
+           not _STAGE.match(k) and not k.startswith(("cg_", "galerkin."))}
+    out.update((k, t[k]) for k in _CG_TOTALS if k in t)
+    for k, v in t.items():
+        m = _STAGE.match(k)
+        if m:
+            key = f"mg_{m.group(1)}_s"
+            out[key] = out.get(key, 0.0) + v
+    return {k: round(v, 4) for k, v in out.items()}
+
+
 _PHASE_START = [time.perf_counter()]
 
 
@@ -611,7 +633,7 @@ def solve(N: int, k: int, tol: float, fitted: str = "full",
          ms_per_iteration=1e3 * r.timings["cg_s"] / max(r.iterations, 1),
          wall_s=wall,
          peak_gb=torch.cuda.max_memory_allocated() / 1e9 if on_card else None,
-         **{key: round(v, 4) for key, v in r.timings.items()})
+         **span_summary(r.timings))
     if cap is None:
         check(r.exit_reason == cg.CONVERGED and r.rel_residual < tol,
               f"{N}^2 k={k}: exit {r.exit_reason}, rel {r.rel_residual}")
@@ -1031,7 +1053,7 @@ def poisson_solves(N: int, k: int, tol: float):
     from proton_tpu_torch.core.ops import HHODegreeInfo, cell_rhs
     from proton_tpu_torch.methods import assembly, condensation, poisson
     from proton_tpu_torch.solvers import cg
-    from proton_tpu_torch.utils.timing import timed
+    from proton_tpu_torch.utils.timing import sink, span
 
     rhs, sol, grad = _sin_problem()
     hdi = HHODegreeInfo(k + 1, k)
@@ -1044,38 +1066,39 @@ def poisson_solves(N: int, k: int, tol: float):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         t, t0 = {}, time.perf_counter()
-        with timed(t, "dofmap_s", dev):
-            dm = assembly.build_dofmap(mesh, hdi)
-        if form == "full":
-            s = poisson.solve_poisson(mesh, dm, hdi, rhs, sol, "hho",
-                                      params, timings=t)
-            its, exit_code = s.iterations, s.exit_reason
-        else:
-            with timed(t, "geometry_s", dev):
-                geom = cell_geometry(mesh)
-            with timed(t, "local_operators_s", dev):
-                oper, lc = poisson.assemble_local(mesh, geom, hdi)
-            with timed(t, "rhs_s", dev):
-                f = cell_rhs(mesh, geom, hdi.cell_degree, rhs)
-                g = assembly.local_dirichlet_data(
-                    dm, mesh, assembly.dirichlet_face_data(mesh, hdi, sol))
-                inc = assembly.build_face_incidence(mesh, dm)
-            local, res = condensation.solve_condensed(dm, lc, f, g, inc,
-                                                      params, timings=t)
-            del lc
-            s = poisson.PoissonSolution(res.x, local, oper, res.iterations,
-                                        res.exit_reason, res.rel_residual,
-                                        None)
-            its, exit_code = res.iterations, res.exit_reason
-        with timed(t, "errors_s", dev):
-            e = poisson.compute_errors(mesh, hdi, s, sol, grad)
-            errs = tuple(float(v) for v in e)
+        with sink(t):
+            with span("dofmap", dev):
+                dm = assembly.build_dofmap(mesh, hdi)
+            if form == "full":
+                s = poisson.solve_poisson(mesh, dm, hdi, rhs, sol, "hho",
+                                          params, timings=t)
+                its, exit_code = s.iterations, s.exit_reason
+            else:
+                with span("geometry", dev):
+                    geom = cell_geometry(mesh)
+                with span("local_operators", dev):
+                    oper, lc = poisson.assemble_local(mesh, geom, hdi)
+                with span("rhs", dev):
+                    f = cell_rhs(mesh, geom, hdi.cell_degree, rhs)
+                    g = assembly.local_dirichlet_data(
+                        dm, mesh, assembly.dirichlet_face_data(mesh, hdi, sol))
+                    inc = assembly.build_face_incidence(mesh, dm)
+                local, res = condensation.solve_condensed(dm, lc, f, g, inc,
+                                                          params, timings=t)
+                del lc
+                s = poisson.PoissonSolution(res.x, local, oper, res.iterations,
+                                            res.exit_reason, res.rel_residual,
+                                            None)
+                its, exit_code = res.iterations, res.exit_reason
+            with span("errors", dev):
+                e = poisson.compute_errors(mesh, hdi, s, sol, grad)
+                errs = tuple(float(v) for v in e)
         line("poisson", N=N, k=k, form=form, tol=tol, exit=exit_code,
              iterations=its, ms_per_iteration=1e3 * t["cg_s"] / max(its, 1),
              l2=errs[0], l2_proj=errs[1], energy=errs[2],
              wall_s=time.perf_counter() - t0,
              peak_gb=torch.cuda.max_memory_allocated() / 1e9,
-             **{key: round(v, 4) for key, v in t.items()})
+             **span_summary(t))
         check(exit_code == cg.CONVERGED, f"{N}^2 {form}: exit {exit_code}")
         check(bool(torch.isfinite(s.local).all()), f"{N}^2 {form}: local")
         out[form] = (s.local, errs)
@@ -1292,7 +1315,7 @@ def fictdom_generic(N: int, k: int, **kw):
          iterations=r.iterations, h1=r.h1_error,
          ms_per_iteration=1e3 * t["cg_s"] / max(r.iterations, 1),
          wall_s=wall, peak_gb=_peak_gb(),
-         **{key: round(v, 4) for key, v in t.items()})
+         **span_summary(t))
     check(r.exit_reason == cg.CONVERGED, f"fictdom {N}^2 k={k}: exit "
           f"{r.exit_reason}")
     check(math.isfinite(r.h1_error), f"fictdom {N}^2 k={k}: H1")
@@ -1361,7 +1384,7 @@ def interface_solve(N: int, k: int, **kw):
          ms_per_iteration=1e3 * t["cg_s"] / max(r.iterations, 1),
          wall_s=wall, peak_gb=_peak_gb(),
          **{key: v for key, v in kw.items() if key != "parms"},
-         **{key: round(v, 4) for key, v in t.items()})
+         **span_summary(t))
     check(r.exit_reason == cg.CONVERGED, f"interface {N}^2 k={k}: exit "
           f"{r.exit_reason}")
     check(math.isfinite(r.h1_error), f"interface {N}^2 k={k}: H1")
@@ -1505,7 +1528,7 @@ def agglomerate_phase() -> None:
              classify_s=classify_s, iterations=r.iterations,
              h1=r.h1_error, exit=r.exit_reason,
              ms_per_iteration=1e3 * t["cg_s"] / max(r.iterations, 1),
-             peak_gb=_peak_gb(), **{key: round(v, 4) for key, v in t.items()})
+             peak_gb=_peak_gb(), **span_summary(t))
         check(merged.num_cells == n * n - groups and merged.max_pts > 4,
               f"agglomerate {n}^2: cell count")
         check(abs(area - 1.0) < 1e-12, f"agglomerate {n}^2: area {area}")

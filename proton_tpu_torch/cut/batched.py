@@ -43,7 +43,7 @@ from ..core.mesh import make_poly_mesh
 from ..core.ops import HHODegreeInfo
 from ..methods import assembly, fused_assembly, structured
 from ..solvers import cg
-from ..utils.timing import timed
+from ..utils.timing import sink, span
 from . import methods as cut_methods
 from .classify import LOC_CUT, LOC_NEG, _preprocess_core
 from .fictdom_structured import (FictdomProblem, _cut_loads_cl,
@@ -123,37 +123,38 @@ def _solve_one_geometry(mesh, dofmap, sys_f, params, *, family,
     cbs = bases.cell_basis_size(hdi.cell_degree)
     dev = mesh.points.device
 
-    with timed(timings, "classify_s", dev):
-        pts, cutdata, concave, n_bad = _preprocess_core(
-            mesh, problem.ls, int_refsteps, agglomeration=False,
-            displacement=True)
-        mesh2 = mesh.with_points(pts)
-        geom = cell_geometry(mesh2)
-        ids, _, n_cut, n_over = padded_cut_ids(cutdata.cell_loc, capacity)
-        n_cut, n_over = int(n_cut), int(n_over)
-        vids = ids[:n_cut - n_over]
-        batch = cut_methods.make_cut_batch(mesh2, geom, cutdata, vids)
-    with timed(timings, "fitted_s", dev):
-        lc_cl = fused_assembly.fitted_local_operator(mesh2, geom, hdi,
-                                                     cells_last=True)
-    with timed(timings, "cut_s", dev):
-        f_cl = _loads_cl(mesh2, geom, cutdata.cell_loc, hdi, problem, True,
-                         side)
-        if len(vids):
-            lc_cl[:, vids] = _cut_operators_cl(batch, hdi, problem, eta,
-                                               side)
-            f_cl[:, vids] = _cut_loads_cl(batch, hdi, problem, eta, True,
-                                          side)
-        fd = assembly.dirichlet_face_data(mesh2, hdi, problem.sol_fun)
-        gF_cl = assembly.local_dirichlet_data(dofmap, mesh2, fd)[:, cbs:].T
+    with sink(timings):
+        with span("classify", dev):
+            pts, cutdata, concave, n_bad = _preprocess_core(
+                mesh, problem.ls, int_refsteps, agglomeration=False,
+                displacement=True)
+            mesh2 = mesh.with_points(pts)
+            geom = cell_geometry(mesh2)
+            ids, _, n_cut, n_over = padded_cut_ids(cutdata.cell_loc, capacity)
+            n_cut, n_over = int(n_cut), int(n_over)
+            vids = ids[:n_cut - n_over]
+            batch = cut_methods.make_cut_batch(mesh2, geom, cutdata, vids)
+        with span("fitted", dev):
+            lc_cl = fused_assembly.fitted_local_operator(mesh2, geom, hdi,
+                                                         cells_last=True)
+        with span("cut", dev):
+            f_cl = _loads_cl(mesh2, geom, cutdata.cell_loc, hdi, problem, True,
+                             side)
+            if len(vids):
+                lc_cl[:, vids] = _cut_operators_cl(batch, hdi, problem, eta,
+                                                   side)
+                f_cl[:, vids] = _cut_loads_cl(batch, hdi, problem, eta, True,
+                                              side)
+            fd = assembly.dirichlet_face_data(mesh2, hdi, problem.sol_fun)
+            gF_cl = assembly.local_dirichlet_data(dofmap, mesh2, fd)[:, cbs:].T
 
-    local, res = structured.solve_condensed_structured_cl(
-        sys_f, lc_cl, f_cl, cbs, gF_cl, cg_params, timings=timings)
-    del lc_cl, f_cl
-    with timed(timings, "h1_s", dev):
-        h1 = fictdom_h1_error_chunked(mesh2, geom, batch, cutdata.cell_loc,
-                                      hdi, local, problem.sol_grad, side,
-                                      chunk=chunk)
+        local, res = structured.solve_condensed_structured_cl(
+            sys_f, lc_cl, f_cl, cbs, gF_cl, cg_params, timings=timings)
+        del lc_cl, f_cl
+        with span("h1", dev):
+            h1 = fictdom_h1_error_chunked(mesh2, geom, batch, cutdata.cell_loc,
+                                          hdi, local, problem.sol_grad, side,
+                                          chunk=chunk)
     # an overflowed cut class solved a wrong system: poison its error
     if n_over > 0:
         h1 = math.nan

@@ -28,7 +28,7 @@ from ..core.geometry import cell_geometry
 from ..core.ops import HHODegreeInfo, cell_rhs
 from ..methods import assembly, hho
 from ..solvers import cg
-from ..utils.timing import timed
+from ..utils.timing import sink, span
 from . import methods as cut_methods
 from .classify import LOC_CUT, LOC_NEG, CutData, cut_preprocess
 from .levelset import LevelSet
@@ -97,32 +97,33 @@ def solve_fictdom(mesh, cutdata: CutData, ls: LevelSet, degree: int,
     side = LOC_NEG
     dev = mesh.points.device
 
-    with timed(timings, "assemble_s", dev):
-        geom = cell_geometry(mesh)
-        batch = make_cut_batch(mesh, geom, cutdata, cut_cell_ids(cutdata))
-        lc, oper_cut = assemble_fictdom_local(mesh, geom, batch, ls, hdi,
-                                              side=side)
-        f = assemble_fictdom_rhs(mesh, geom, batch, ls, hdi, rhs_fun,
-                                 sol_fun, cutdata.cell_loc, side)
-    with timed(timings, "setup_s", dev):
-        dofmap = assembly.build_dofmap(mesh, hdi)
-        fd = assembly.dirichlet_face_data(mesh, hdi, sol_fun)
-        g_loc = assembly.local_dirichlet_data(dofmap, mesh, fd)
-        rhs = assembly.assemble_rhs(dofmap, f, lc, g_loc)
-        apply_A = assembly.make_operator(dofmap, lc)
-        # A face that lies off the physical side for every cell it
-        # touches (two cut cells meet there on agglomerated meshes) gets
-        # no contribution: its row and column are zero, and so is its
-        # load. Jacobi takes 1 there, where the JAX package divides by
-        # zero, so CG leaves those dofs at 0 instead of NaN.
-        diag = assembly.operator_diagonal(dofmap, lc)
-        diag = torch.where(diag == 0, torch.ones_like(diag), diag)
-    with timed(timings, "cg_s", dev):
-        res = cg.conjugated_gradient(apply_A, rhs, diag, cg_params)
-    with timed(timings, "h1_s", dev):
-        local = assembly.take_local_data(dofmap, res.x, g_loc)
-        h1 = fictdom_h1_error(mesh, geom, batch, cutdata, hdi, local,
-                              sol_grad, side)
+    with sink(timings):
+        with span("assemble", dev):
+            geom = cell_geometry(mesh)
+            batch = make_cut_batch(mesh, geom, cutdata, cut_cell_ids(cutdata))
+            lc, oper_cut = assemble_fictdom_local(mesh, geom, batch, ls, hdi,
+                                                  side=side)
+            f = assemble_fictdom_rhs(mesh, geom, batch, ls, hdi, rhs_fun,
+                                     sol_fun, cutdata.cell_loc, side)
+        with span("setup", dev):
+            dofmap = assembly.build_dofmap(mesh, hdi)
+            fd = assembly.dirichlet_face_data(mesh, hdi, sol_fun)
+            g_loc = assembly.local_dirichlet_data(dofmap, mesh, fd)
+            rhs = assembly.assemble_rhs(dofmap, f, lc, g_loc)
+            apply_A = assembly.make_operator(dofmap, lc)
+            # A face that lies off the physical side for every cell it
+            # touches (two cut cells meet there on agglomerated meshes) gets
+            # no contribution: its row and column are zero, and so is its
+            # load. Jacobi takes 1 there, where the JAX package divides by
+            # zero, so CG leaves those dofs at 0 instead of NaN.
+            diag = assembly.operator_diagonal(dofmap, lc)
+            diag = torch.where(diag == 0, torch.ones_like(diag), diag)
+        with span("cg", dev):
+            res = cg.conjugated_gradient(apply_A, rhs, diag, cg_params)
+        with span("h1", dev):
+            local = assembly.take_local_data(dofmap, res.x, g_loc)
+            h1 = fictdom_h1_error(mesh, geom, batch, cutdata, hdi, local,
+                                  sol_grad, side)
 
     eigs = None
     if check_coercivity:
@@ -214,7 +215,7 @@ def run_fictdom(N: int, degree: int, radius: float = 0.35,
 
     device = resolve_device(device)
     p = default_problem(radius, center)
-    with timed(timings, "classify_s", device):
+    with sink(timings), span("classify", device):
         mesh = make_poly_mesh(Nx=N, Ny=N, device=device, dtype=dtype)
         mesh, cutdata = cut_preprocess(mesh, p.ls, levels=int_refsteps,
                                        agglomeration=agglomeration)

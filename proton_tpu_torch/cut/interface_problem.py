@@ -34,7 +34,7 @@ from ..core.ops import HHODegreeInfo, cell_rhs, cho_solve_batched, \
     robust_spd_solve, spd_inverse
 from ..methods import assembly, condensation, hho
 from ..solvers import cg
-from ..utils.timing import timed
+from ..utils.timing import sink, span
 from . import methods as cut_methods
 from .classify import LOC_CUT, LOC_NEG, LOC_POS, CutData, cut_preprocess
 from .levelset import LevelSet
@@ -589,36 +589,39 @@ def solve_interface(mesh, cutdata: CutData, ls: LevelSet, degree: int,
     phase are recorded in it (device synchronized after each)."""
     hdi = HHODegreeInfo(degree + 1, degree)
     dev = mesh.points.device
-    with timed(timings, "assemble_s", dev):
-        asm = assemble_interface(mesh, cutdata, ls, hdi, rhs_fun, sol_fun,
-                                 parms)
-    dm = asm.dm
-    if condensed:
-        with timed(timings, "setup_s", dev):
-            fsys = condensed_face_system(mesh, asm, hdi, parms,
-                                         precond_kind)
-        with timed(timings, "cg_s", dev):
-            res = cg.conjugated_gradient(fsys.apply, fsys.rhs, None,
-                                         cg_params, precond=fsys.precond)
-        with timed(timings, "recover_s", dev):
-            res = res._replace(x=recover_interface(asm, fsys, res.x))
-    else:
-        with timed(timings, "setup_s", dev):
-            blocks = [(dm.asm_uncut, asm.lc_uncut), (dm.asm_cut, asm.lc_cut)]
-            rhs = assembly.multi_assemble_rhs(dm.n_dofs, [
-                (dm.asm_uncut, asm.loads_uncut), (dm.asm_cut, asm.loads_cut)])
-            apply_A = assembly.make_multi_operator(dm.n_dofs, blocks)
-            diag = assembly.multi_operator_diagonal(dm.n_dofs, blocks)
-        with timed(timings, "cg_s", dev):
-            res = cg.conjugated_gradient(apply_A, rhs, diag, cg_params)
+    with sink(timings):
+        with span("assemble", dev):
+            asm = assemble_interface(mesh, cutdata, ls, hdi, rhs_fun, sol_fun,
+                                     parms)
+        dm = asm.dm
+        if condensed:
+            with span("setup", dev):
+                fsys = condensed_face_system(mesh, asm, hdi, parms,
+                                             precond_kind)
+            with span("cg", dev):
+                res = cg.conjugated_gradient(fsys.apply, fsys.rhs, None,
+                                             cg_params, precond=fsys.precond)
+            with span("recover", dev):
+                res = res._replace(x=recover_interface(asm, fsys, res.x))
+        else:
+            with span("setup", dev):
+                blocks = [(dm.asm_uncut, asm.lc_uncut),
+                          (dm.asm_cut, asm.lc_cut)]
+                rhs = assembly.multi_assemble_rhs(dm.n_dofs, [
+                    (dm.asm_uncut, asm.loads_uncut),
+                    (dm.asm_cut, asm.loads_cut)])
+                apply_A = assembly.make_multi_operator(dm.n_dofs, blocks)
+                diag = assembly.multi_operator_diagonal(dm.n_dofs, blocks)
+            with span("cg", dev):
+                res = cg.conjugated_gradient(apply_A, rhs, diag, cg_params)
 
-    with timed(timings, "h1_s", dev):
-        local_neg = take_local_data(mesh, dm, cutdata, res.x, asm.face_data,
-                                    LOC_NEG)
-        local_pos = take_local_data(mesh, dm, cutdata, res.x, asm.face_data,
-                                    LOC_POS)
-        h1 = interface_h1_error(mesh, asm.geom, asm.batch, cutdata, hdi,
-                                local_neg, local_pos, sol_grad)
+        with span("h1", dev):
+            local_neg = take_local_data(mesh, dm, cutdata, res.x,
+                                        asm.face_data, LOC_NEG)
+            local_pos = take_local_data(mesh, dm, cutdata, res.x,
+                                        asm.face_data, LOC_POS)
+            h1 = interface_h1_error(mesh, asm.geom, asm.batch, cutdata, hdi,
+                                    local_neg, local_pos, sol_grad)
     return InterfaceResult(res.x, local_neg, local_pos, float(h1),
                            res.iterations, res.exit_reason)
 
@@ -670,7 +673,7 @@ def run_interface(N: int, degree: int, radius: float = 0.35,
 
     device = resolve_device(device)
     p = default_problem(radius, center)
-    with timed(timings, "classify_s", device):
+    with sink(timings), span("classify", device):
         mesh = make_poly_mesh(Nx=N, Ny=N, device=device, dtype=dtype)
         mesh, cutdata = cut_preprocess(mesh, p.ls, levels=int_refsteps)
     return solve_interface(mesh, cutdata, p.ls, degree, p.rhs_fun,

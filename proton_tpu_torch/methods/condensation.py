@@ -20,7 +20,7 @@ import torch
 
 from ..core.ops import cho_solve_batched, robust_spd_solve
 from ..solvers import cg
-from ..utils.timing import timed
+from ..utils.timing import sink, span
 from .assembly import DofMap, FaceIncidence, _apply_local, \
     _incidence_gather, gather_values, scatter_values
 
@@ -118,13 +118,14 @@ def solve_condensed(dofmap: DofMap, lc, f_cells, g_loc=None,
     (local [C, d], CGResult). With a ``timings`` dict, the seconds of
     condensation, CG and recovery are recorded in it (device
     synchronized after each)."""
-    with timed(timings, "condense_s", lc.device):
-        sys = condense(lc, f_cells, dofmap.cbs)
-        rhs = condensed_rhs(dofmap, sys, g_loc)
-        apply_S = make_condensed_operator(dofmap, inc, sys.S)
-        diag = condensed_diagonal(dofmap, sys.S)
-    with timed(timings, "cg_s", lc.device):
-        res = cg.conjugated_gradient(apply_S, rhs, diag, cg_params)
-    with timed(timings, "recover_s", lc.device):
-        local = recover_local(dofmap, sys, res.x, g_loc)
+    with sink(timings):
+        with span("condense", lc.device):
+            sys = condense(lc, f_cells, dofmap.cbs)
+            rhs = condensed_rhs(dofmap, sys, g_loc)
+            apply_S = make_condensed_operator(dofmap, inc, sys.S)
+            diag = condensed_diagonal(dofmap, sys.S)
+        with span("cg", lc.device):
+            res = cg.conjugated_gradient(apply_S, rhs, diag, cg_params)
+        with span("recover", lc.device):
+            local = recover_local(dofmap, sys, res.x, g_loc)
     return local, res

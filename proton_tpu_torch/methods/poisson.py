@@ -18,7 +18,7 @@ from ..core.geometry import cell_geometry
 from ..core.ops import HHODegreeInfo, cell_mass_matrices, cell_rhs, \
     cho_solve_batched
 from ..solvers import cg
-from ..utils.timing import timed
+from ..utils.timing import sink, span
 from . import assembly, hho
 
 DEFAULT_CG = cg.CGParams(convergence_threshold=1e-12,
@@ -54,21 +54,22 @@ def solve_poisson(mesh, dofmap: assembly.DofMap, hdi: HHODegreeInfo,
     """Assemble and solve -lap(u) = f, u = g on the boundary, on the full
     (cell + face) system with PCG."""
     dev = mesh.points.device
-    with timed(timings, "geometry_s", dev):
-        geom = cell_geometry(mesh)
-    with timed(timings, "local_operators_s", dev):
-        oper, lc = assemble_local(mesh, geom, hdi, stab)
-    with timed(timings, "rhs_s", dev):
-        f = cell_rhs(mesh, geom, hdi.cell_degree, rhs_fun)
-        fd = assembly.dirichlet_face_data(mesh, hdi, bc_fun)
-        g_loc = assembly.local_dirichlet_data(dofmap, mesh, fd)
-        rhs = assembly.assemble_rhs(dofmap, f, lc, g_loc)
-        apply_A = assembly.make_operator(dofmap, lc)
-        diag = assembly.operator_diagonal(dofmap, lc)
-    with timed(timings, "cg_s", dev):
-        res = cg.conjugated_gradient(apply_A, rhs, diag, cg_params)
-    with timed(timings, "recover_s", dev):
-        local = assembly.take_local_data(dofmap, res.x, g_loc)
+    with sink(timings):
+        with span("geometry", dev):
+            geom = cell_geometry(mesh)
+        with span("local_operators", dev):
+            oper, lc = assemble_local(mesh, geom, hdi, stab)
+        with span("rhs", dev):
+            f = cell_rhs(mesh, geom, hdi.cell_degree, rhs_fun)
+            fd = assembly.dirichlet_face_data(mesh, hdi, bc_fun)
+            g_loc = assembly.local_dirichlet_data(dofmap, mesh, fd)
+            rhs = assembly.assemble_rhs(dofmap, f, lc, g_loc)
+            apply_A = assembly.make_operator(dofmap, lc)
+            diag = assembly.operator_diagonal(dofmap, lc)
+        with span("cg", dev):
+            res = cg.conjugated_gradient(apply_A, rhs, diag, cg_params)
+        with span("recover", dev):
+            local = assembly.take_local_data(dofmap, res.x, g_loc)
     return PoissonSolution(res.x, local, oper, res.iterations,
                            res.exit_reason, res.rel_residual, res.history)
 

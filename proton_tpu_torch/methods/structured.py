@@ -23,7 +23,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from ..solvers import cg
-from ..utils.timing import timed
+from ..utils.timing import sink, span
 
 DEFAULT_CG = cg.CGParams(convergence_threshold=1e-6,
                          divergence_threshold=1e8, max_iter=50000,
@@ -148,15 +148,16 @@ def solve_condensed_structured_cl(sys: StructuredFaceSystem, lc_cl, f_cl,
     the cells: (local [C, d], CGResult with x a GridVecCL). With a
     ``timings`` dict, condense_s, cg_s and recover_s are added to it."""
     dev = lc_cl.device
-    with timed(timings, "condense_s", dev):
-        cond = cl.condense_cl(lc_cl, f_cl, cbs)
-        rhs = cl.structured_rhs_cl(sys, cond, gF_cl)
-        apply_S = cl.make_structured_operator_cl(sys, cond.S)
-        diag = cl.structured_diagonal_cl(sys, cond.S)
-    with timed(timings, "cg_s", dev):
-        res = cg.conjugated_gradient(apply_S, rhs, diag, cg_params)
-    with timed(timings, "recover_s", dev):
-        local = cl.solve_recover_cl(sys, cond, res.x, gF_cl)
+    with sink(timings):
+        with span("condense", dev):
+            cond = cl.condense_cl(lc_cl, f_cl, cbs)
+            rhs = cl.structured_rhs_cl(sys, cond, gF_cl)
+            apply_S = cl.make_structured_operator_cl(sys, cond.S)
+            diag = cl.structured_diagonal_cl(sys, cond.S)
+        with span("cg", dev):
+            res = cg.conjugated_gradient(apply_S, rhs, diag, cg_params)
+        with span("recover", dev):
+            local = cl.solve_recover_cl(sys, cond, res.x, gF_cl)
     return local, res
 
 

@@ -10,6 +10,11 @@ iteration; the optional residual history (the reference's per-iteration
 histfile, solver_cg.hpp:102-103) is written on the device and adds no
 read.
 
+Spans (utils/timing.py), into the caller's sink: ``cg_apply`` around
+each operator apply, ``cg_precond`` around each preconditioner call (the
+first included, so there are as many as iterations), ``cg_wait`` around
+the exit test's read, the one place an iteration waits for the device.
+
 Vectors may be a tensor or a NamedTuple of tensors (the face grids);
 inner products reduce over all members.
 """
@@ -20,6 +25,8 @@ import dataclasses
 from typing import Callable, NamedTuple, Optional
 
 import torch
+
+from ..utils.timing import span
 
 CONVERGED = 0
 DIVERGED = 1
@@ -104,14 +111,17 @@ def conjugated_gradient(apply_A: Callable, b, diag=None,
                 return r
 
     def true_residual(x):
-        return _map(torch.sub, b, apply_A(x))
+        with span("cg_apply"):
+            y = apply_A(x)
+        return _map(torch.sub, b, y)
 
     if x0 is None:
         x, r = _map(torch.zeros_like, b), b
     else:
         x = x0
         r = true_residual(x)
-    d = precond(r)
+    with span("cg_precond"):
+        d = precond(r)
     rho = vdot(r, d)
     nr_init = torch.sqrt(vdot(r, r))
     if nr0 is None:
@@ -130,7 +140,8 @@ def conjugated_gradient(apply_A: Callable, b, diag=None,
             if rel is None:
                 rel = float(nr_init / nr0)
             print(f" -> Iteration {it}, rr = {rel}", flush=True)
-        y = apply_A(d)
+        with span("cg_apply"):
+            y = apply_A(d)
         alpha = rho / vdot(d, y)
         x = _axpy(alpha, d, x)
         r = _axpy(-alpha, y, r)
@@ -139,7 +150,8 @@ def conjugated_gradient(apply_A: Callable, b, diag=None,
         rel_t = torch.sqrt(vdot(r, r)) / nr0
         if hist is not None:
             hist[min(it + 1, len(hist) - 1)] = rel_t
-        rel = float(rel_t)
+        with span("cg_wait"):
+            rel = float(rel_t)
         if rel < params.convergence_threshold:
             exit_code = CONVERGED
         elif it > params.max_iter:
@@ -147,7 +159,8 @@ def conjugated_gradient(apply_A: Callable, b, diag=None,
         elif rel > params.divergence_threshold:
             exit_code = DIVERGED
         else:
-            z = precond(r)
+            with span("cg_precond"):
+                z = precond(r)
             rho_new = vdot(r, z)
             d = _axpy(rho_new / rho, d, z)
             rho = rho_new

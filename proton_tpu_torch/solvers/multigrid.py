@@ -50,6 +50,7 @@ from ..methods import fused_assembly
 from ..methods.cells_last import GridVecCL
 from ..methods.structured import (StructuredFaceSystem,
                                   make_structured_system)
+from ..utils.timing import span
 
 
 def _transfer_face_projectors(hdi: HHODegreeInfo, h: float, *, device):
@@ -825,12 +826,12 @@ def make_galerkin_operator_cl(sys: StructuredFaceSystem, kernel, rows=None,
 
     def apply_S(x: GridVecCL) -> GridVecCL:
         xl = cl.grid_gather_cl(sys, GridVecCL(x.H * freeH, x.V * freeV))
-        with torch.profiler.record_function("galerkin.conv"):
+        with span("galerkin.conv"):
             c = torch.nn.functional.conv2d(
                 xl.reshape(1, nfd, Ny, Nx), kernel,
                 padding=pad).reshape(nfd, Ny * Nx)
         if has_pairs:
-            with torch.profiler.record_function("galerkin.pairs"):
+            with span("galerkin.pairs"):
                 yp = torch.bmm(blocks, xl[:, cols].T[:, :, None])[:, :, 0]
                 c.index_add_(1, rows, yp.T)
         y = cl.grid_scatter_cl(sys, c)
@@ -922,21 +923,31 @@ def _unflatten(v, shapes) -> GridVecCL:
 
 
 def _vcycle(mg: Multigrid, lvl: int, b: GridVecCL) -> GridVecCL:
+    """The cycle from level ``lvl`` down, each stage a span named by the
+    level's n x n cells: mg_smooth_n{n} (pre and post), mg_residual_n{n},
+    mg_restrict_n{n}, mg_prolong_n{n} (with the correction's add) and
+    mg_coarse_n{n} on the coarsest level."""
     level = mg.levels[lvl]
+    n = level.sys.Nx
     if lvl == len(mg.levels) - 1:
-        return _unflatten(_coarse_solve(mg.coarse_factor, _flatten(b)),
-                          mg.coarse_shape)
+        with span(f"mg_coarse_n{n}"):
+            return _unflatten(_coarse_solve(mg.coarse_factor, _flatten(b)),
+                              mg.coarse_shape)
 
     def smooth(x, steps):
         # x = None is the zero initial guess: the first residual is b
-        for _ in range(mg.n_smooth):
-            for s in steps:
-                x = s(b) if x is None else \
-                    _add(x, s(_sub(b, level.apply_S(x))))
+        with span(f"mg_smooth_n{n}"):
+            for _ in range(mg.n_smooth):
+                for s in steps:
+                    x = s(b) if x is None else \
+                        _add(x, s(_sub(b, level.apply_S(x))))
         return x
 
     x = smooth(None, level.smoothers)
-    rc = level.restrict(_sub(b, level.apply_S(x)))
+    with span(f"mg_residual_n{n}"):
+        r = _sub(b, level.apply_S(x))
+    with span(f"mg_restrict_n{n}"):
+        rc = level.restrict(r)
     ec = _vcycle(mg, lvl + 1, rc)
     if mg.gamma > 1 and lvl < mg.gamma_depth and \
             lvl + 1 < len(mg.levels) - 1:
@@ -945,7 +956,8 @@ def _vcycle(mg: Multigrid, lvl: int, b: GridVecCL) -> GridVecCL:
         for _ in range(mg.gamma - 1):
             ec = _add(ec, _vcycle(mg, lvl + 1,
                                   _sub(rc, coarse.apply_S(ec))))
-    x = _add(x, level.prolong(ec))
+    with span(f"mg_prolong_n{n}"):
+        x = _add(x, level.prolong(ec))
     return smooth(x, tuple(reversed(level.smoothers)))
 
 

@@ -5,7 +5,24 @@ and the coloured phase lines of the apps).
 The device runs asynchronously, so a stopwatch around device work must
 wait for it: ``toc`` synchronizes the device of the tensor it is given.
 The JAX module's ``phase`` context manager, which nothing calls, is not
-ported; ``timed`` records phase seconds into a dict instead.
+ported; ``span`` records the program's spans into a dict instead.
+
+Spans. A solve makes its ``timings`` dict the sink of every span opened
+while it runs (``with sink(timings):``); a context variable holds it, so
+the spans deep in CG and the V-cycle need no argument. A span named
+``x`` adds to the sink
+
+- ``x_s``: its host seconds, ended by a synchronize of ``device`` where
+  the span is given one (the phases); without one it is the host's
+  enqueue time, and the span adds no wait;
+- ``x_self_s``: those seconds less what its child spans cover (the spans
+  opened inside it in the same sink);
+- ``x_calls``: 1.
+
+While a torch profiler runs, and only then, a span is also a
+``torch.profiler.record_function`` range of its name, so it sits on the
+profiler's clock around the work it launches. With no sink and no
+profiler a span costs a flag read and the sink lookup.
 """
 
 from __future__ import annotations
@@ -13,9 +30,11 @@ from __future__ import annotations
 import sys
 import time
 from contextlib import contextmanager
+from contextvars import ContextVar
 from typing import Optional
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 from ..config import synchronize
 
@@ -71,16 +90,75 @@ cyan = _wrap(36)
 bold = _wrap(1)
 
 
+class _Sink:
+    """A timings dict and the stack of the spans open in it."""
+
+    __slots__ = ("timings", "open")
+
+    def __init__(self, timings: dict):
+        self.timings = timings
+        self.open = []
+
+
+_SINK: ContextVar[Optional[_Sink]] = ContextVar("proton_tpu_torch_span_sink",
+                                                default=None)
+
+
 @contextmanager
-def timed(timings: Optional[dict], name: str, device):
-    """Add the block's seconds to ``timings[name]`` (so a phase run once
-    per item of a loop sums), the device synchronized at its end; a no-op
-    when ``timings`` is None."""
-    if timings is None:
+def sink(timings: Optional[dict]):
+    """Make ``timings`` the sink of the spans opened in the block; None:
+    they record nothing there. Installing the dict that is already the
+    sink changes nothing, so a phase function handed its caller's dict
+    nests its spans under the caller's open ones."""
+    active = _SINK.get()
+    if active is not None and active.timings is timings:
         yield
         return
-    t0 = time.perf_counter()
-    yield
-    synchronize(device)
-    timings[name] = timings.get(name, 0.0) + time.perf_counter() - t0
+    token = _SINK.set(None if timings is None else _Sink(timings))
+    try:
+        yield
+    finally:
+        _SINK.reset(token)
 
+
+class span:
+    """``with span(name[, device]):`` records the block into the active
+    sink (the module docstring); ``device``: synchronize it before the
+    block's end is read. A block that raises records nothing."""
+
+    __slots__ = ("name", "device", "_sink", "_range", "_t0", "_inner")
+
+    def __init__(self, name: str, device=None):
+        self.name = name
+        self.device = device
+
+    def __enter__(self):
+        self._range = None
+        if _autograd_profiler._is_profiler_enabled:
+            self._range = torch.profiler.record_function(self.name)
+            self._range.__enter__()
+        self._sink = s = _SINK.get()
+        if s is not None:
+            s.open.append(self)
+            self._inner = 0.0
+            self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        s = self._sink
+        if s is not None:
+            s.open.pop()
+            if exc_type is None:
+                if self.device is not None:
+                    synchronize(self.device)
+                dt = time.perf_counter() - self._t0
+                if s.open:
+                    s.open[-1]._inner += dt
+                t, name = s.timings, self.name
+                t[name + "_s"] = t.get(name + "_s", 0.0) + dt
+                t[name + "_self_s"] = t.get(name + "_self_s", 0.0) + \
+                    dt - self._inner
+                t[name + "_calls"] = t.get(name + "_calls", 0) + 1
+        if self._range is not None:
+            self._range.__exit__(exc_type, exc, tb)
+        return False

@@ -358,3 +358,49 @@ def test_precision_modes_on_card_match_cpu(options):
         assert abs(card.h1_error - host.h1_error) <= 0.1 * noise
     else:
         assert np.isclose(card.h1_error, host.h1_error, rtol=1e-7)
+
+
+@pytest.mark.cuda
+def test_cg_iteration_waits_for_the_card_only_in_its_exit_test():
+    """64^2 k=1, lean + multigrid: one V-cycle apply and one fine operator
+    apply enqueue without a host wait (torch's sync debug mode "error"
+    lets them through); CG under that mode stops at its first wait, inside
+    the cg_wait span after the first apply and V-cycle; and under "warn"
+    a capped CG waits once an iteration, as many times as cg_wait ran."""
+    import warnings
+
+    from proton_tpu_torch.utils.timing import sink
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    N, k, dev = 64, 1, torch.device("cuda")
+    hdi, eta, problem = HHODegreeInfo(k + 1, k), fs.nitsche_eta(k), \
+        fs.default_problem()
+    level = fs.build_level(N, hdi, problem, eta, 4, device=dev,
+                           fitted="lean")
+    vcycle = fs.mg_preconditioner(level, N, hdi, problem, eta, 4,
+                                  device=dev)
+    fsys = fs.face_system(level, N, hdi, problem, "mg", device=dev)
+    params = cg.CGParams(convergence_threshold=1e-30,
+                         divergence_threshold=1e8, max_iter=3,
+                         apply_preconditioner=True)
+    fsys.apply_S(vcycle(fsys.rhs))              # warm: allocator, handles
+    torch.cuda.synchronize()
+    t = {}
+    try:
+        torch.cuda.set_sync_debug_mode("error")
+        y = fsys.apply_S(vcycle(fsys.rhs))
+        with sink(t), pytest.raises(RuntimeError, match="synchroniz"):
+            cg.conjugated_gradient(fsys.apply_S, fsys.rhs, None, params,
+                                   precond=vcycle)
+        torch.cuda.set_sync_debug_mode("warn")
+        with sink(waits := {}), warnings.catch_warnings(record=True) as w:
+            warnings.simplefilter("always")
+            res = cg.conjugated_gradient(fsys.apply_S, fsys.rhs, None,
+                                         params, precond=vcycle)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.isfinite(y.H).all() and torch.isfinite(y.V).all()
+    assert t.get("cg_apply_calls") == t.get("cg_precond_calls") == 1
+    assert "cg_wait_calls" not in t
+    syncs = [x for x in w if "synchroniz" in str(x.message)]
+    assert res.iterations == waits["cg_wait_calls"] == len(syncs)
