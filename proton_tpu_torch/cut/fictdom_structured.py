@@ -760,7 +760,8 @@ def mg_preconditioner(fine: LevelData, N: int, hdi: HHODegreeInfo,
     _solve_jit); without cut cells there is no band and nothing is added.
     ``vcycle``: level_multigrid's smoother keywords. Phase times go into
     ``timings``: assemble_coarse_s (drec_setup_s included), drec_setup_s,
-    galerkin_setup_s, mg_setup_s, deflate_setup_s."""
+    galerkin_setup_s, mg_setup_s (on CUDA with the V-cycle's graph
+    capture, mg_graph_capture_s), deflate_setup_s."""
     _check_mg_transfer(mg_transfer)
     if mg_deflate < 0:
         raise ValueError(f"mg_deflate={mg_deflate!r}: expected 0 or more")
@@ -983,7 +984,10 @@ def solve_fictdom_structured(
     a device synchronize (classify, assembly, assemble_coarse, mg_setup,
     setup, cg, recover, and the options' own set-up phases) and ``h1``;
     inside ``cg`` the spans of solvers/cg.py, and inside ``cg_precond``
-    the V-cycle's (multigrid._vcycle)."""
+    the V-cycle's (multigrid._vcycle). On CUDA the V-cycle is a CUDA
+    graph: ``cg_precond`` holds ``mg_graph_replay``, and the V-cycle's
+    own spans run only in its capture, ``mg_graph_capture`` inside
+    ``mg_setup``."""
     device = resolve_device(device)
     _check_precond(precond)
     _check_fitted(fitted)

@@ -31,7 +31,11 @@ the Galerkin hierarchies).
 Everything the V-cycle indexes with (face positions, masks, transfer
 matrices, Chebyshev coefficients) is built once in ``build_multigrid``:
 ``Multigrid.precondition`` copies nothing from the host and reads nothing
-back.
+back. Its control flow is fixed there too, so on a CUDA device
+``build_multigrid`` captures the whole V-cycle once as a CUDA graph
+(``VCycleGraph``) and ``precondition`` replays it: one graph launch in
+place of the thousands of small kernels the host would enqueue one by
+one. On the CPU the V-cycle runs as written.
 """
 
 from __future__ import annotations
@@ -877,6 +881,63 @@ class MGLevel(NamedTuple):
     restrict: Optional[Callable]   # (both None on the coarsest)
 
 
+class VCycleGraph(NamedTuple):
+    """The V-cycle of one Multigrid captured as a CUDA graph over static
+    buffers: ``x`` its input, ``y`` its output (tensors of the graph's own
+    memory pool, which lives as long as this object)."""
+
+    levels: List[MGLevel]          # the levels the graph was captured over
+    graph: object                  # torch.cuda.CUDAGraph
+    x: GridVecCL
+    y: GridVecCL
+
+    def fits(self, mg: "Multigrid", r: GridVecCL) -> bool:
+        """Whether replaying computes mg's V-cycle of ``r``: the same
+        levels, and ``r`` of the captured shapes, dtype and device."""
+        return mg.levels is self.levels and all(
+            a.shape == b.shape and a.dtype == b.dtype and a.device == b.device
+            for a, b in zip(r, self.x))
+
+    def replay(self, r: GridVecCL) -> GridVecCL:
+        """Copy ``r`` into the static input, replay, and return a copy of
+        the static output: the next replay overwrites it, and a caller may
+        hold a result across calls (CG keeps the first as its direction)."""
+        with span("mg_graph_replay"):
+            self.x.H.copy_(r.H)
+            self.x.V.copy_(r.V)
+            self.graph.replay()
+            return GridVecCL(self.y.H.clone(), self.y.V.clone())
+
+
+def capture_vcycle(mg: "Multigrid", dtype) -> VCycleGraph:
+    """Capture ``mg``'s V-cycle on its CUDA device for inputs of the fine
+    level's shape in ``dtype``: one eager warm-up V-cycle on the capture's
+    side stream (cuBLAS handles, lazy initialisation), then the capture,
+    both on a zero input, in the span mg_graph_capture. A capture that
+    fails raises.
+
+    cuBLAS keeps a workspace (32 MiB on an H100) for every stream it has
+    run on, for the life of the process, so each capture on a side
+    stream would leave one behind. The workspaces are dropped before the
+    capture, which then takes its own from the graph's memory pool, and
+    after it, which leaves that one to the graph alone: it goes with the
+    graph. Eager calls take theirs anew."""
+    x = _zeros_grid(mg.levels[0].sys, dtype)
+    device = x.H.device
+    with span("mg_graph_capture"), torch.cuda.device(device):
+        stream = torch.cuda.Stream(device)
+        stream.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(stream):
+            _vcycle(mg, 0, x)
+        torch.cuda.current_stream(device).wait_stream(stream)
+        torch._C._cuda_clearCublasWorkspaces()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            y = _vcycle(mg, 0, x)
+        torch._C._cuda_clearCublasWorkspaces()
+    return VCycleGraph(mg.levels, graph, x, y)
+
+
 class Multigrid(NamedTuple):
     levels: List[MGLevel]
     coarse_factor: tuple           # (Q, winv) of _coarse_factor
@@ -886,8 +947,14 @@ class Multigrid(NamedTuple):
     #                                the top ``gamma_depth`` gaps is solved
     #                                gamma times (W-style re-visits)
     gamma_depth: int = 2
+    graph: Optional[VCycleGraph] = None    # on CUDA, capture_vcycle's
 
     def precondition(self, r: GridVecCL) -> GridVecCL:
+        """One V-cycle of ``r``: the graph's replay where it fits ``r`` and
+        these levels, else the V-cycle run op by op (the CPU, or a
+        Multigrid whose levels were replaced after the capture)."""
+        if self.graph is not None and self.graph.fits(self, r):
+            return self.graph.replay(r)
         return _vcycle(self, 0, r)
 
 
@@ -1176,7 +1243,11 @@ def build_multigrid(N: int, fbs: int, S_per_level, hdi: HHODegreeInfo,
     ``smooth_transfers`` wraps every transfer pair in
     _smooth_transfer_pair with the level's operator and base, at the
     Chebyshev smoother's eigenvalue (a fresh estimate with the damped
-    smoothers)."""
+    smoothers).
+
+    On a CUDA device the V-cycle is captured here as a CUDA graph
+    (capture_vcycle) for inputs of the fine level's shape in the levels'
+    dtype, and Multigrid.precondition replays it."""
     if smoother not in SMOOTHERS:
         raise ValueError(f"smoother={smoother!r}: expected one of "
                          f"{SMOOTHERS}")
@@ -1292,4 +1363,7 @@ def build_multigrid(N: int, fbs: int, S_per_level, hdi: HHODegreeInfo,
         factor = _coarse_factor(torch.stack(
             [_flatten(apply_c(_unflatten(eye[j], shapes)))
              for j in range(ntot)], dim=1))
-    return Multigrid(levels, factor, shapes, n_smooth, gamma)
+    mg = Multigrid(levels, factor, shapes, n_smooth, gamma)
+    if device.type == "cuda":
+        mg = mg._replace(graph=capture_vcycle(mg, dtype))
+    return mg

@@ -1,7 +1,8 @@
 """Tests of proton_tpu_torch that need an NVIDIA GPU: each hand-written
 kernel against its plain PyTorch version on the card, the default solve,
 the uncut HHO path and the generic cut solves on the card against the
-same computations on the CPU. They skip with a
+same computations on the CPU, and the V-cycle's CUDA graph against the
+V-cycle run op by op. They skip with a
 reason where no card is present. This file imports neither JAX nor
 proton_tpu, so on a machine without JAX it runs alone:
 
@@ -20,7 +21,8 @@ from proton_tpu_torch.core.ops import HHODegreeInfo, cell_rhs
 from proton_tpu_torch.cut import fictdom_structured as fs
 from proton_tpu_torch.methods import assembly, condensation, hho, poisson
 from proton_tpu_torch.methods import fused_assembly as fa
-from proton_tpu_torch.solvers import cg
+from proton_tpu_torch.methods.cells_last import GridVecCL
+from proton_tpu_torch.solvers import cg, multigrid
 from proton_tpu_torch.tools.brick_mesh import write_brick_mesh
 
 
@@ -404,3 +406,171 @@ def test_cg_iteration_waits_for_the_card_only_in_its_exit_test():
     assert "cg_wait_calls" not in t
     syncs = [x for x in w if "synchroniz" in str(x.message)]
     assert res.iterations == waits["cg_wait_calls"] == len(syncs)
+
+
+def _cuda_multigrid(N, k, **options):
+    """The lean level hierarchy of the default fictdom problem at N^2 on
+    the card (``options``: build_level's precision switch) and its
+    Multigrid, whose V-cycle build_multigrid captured."""
+    hdi, eta, problem = HHODegreeInfo(k + 1, k), fs.nitsche_eta(k), \
+        fs.default_problem()
+    dev = torch.device("cuda")
+    fine = fs.build_level(N, hdi, problem, eta, 4, device=dev,
+                          fitted="lean", **options)
+    levels = {N: fine, **fs.build_coarse_levels(N, hdi, problem, eta, 4,
+                                                device=dev, **options)}
+    return fs.level_multigrid(levels, hdi)
+
+
+def _cuda_grid(like, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return GridVecCL(*(torch.randn(a.shape, generator=g, device="cuda",
+                                   dtype=a.dtype) for a in like))
+
+
+def _rel_diff(a, b):
+    """max|a - b| / max|b| over the members of two vectors."""
+    num = max(float((x - y).abs().max()) for x, y in zip(a, b))
+    return num / max(float(y.abs().max()) for y in b)
+
+
+def _no_capture(monkeypatch):
+    """build_multigrid without its capture: the V-cycle then runs op by
+    op on the card, as on the CPU."""
+    monkeypatch.setattr(multigrid, "capture_vcycle", lambda mg, dtype: None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,k", [(128, 1), (64, 2)])
+def test_vcycle_graph_matches_eager(N, k):
+    """The graphed V-cycle of a lean 1024^2-like hierarchy (cut levels
+    N ... 8^2) equals the same Multigrid's V-cycle run op by op to 1e-12
+    relative, over several inputs in a row; its static buffers are the
+    fine level's grids in float64."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from proton_tpu_torch.utils.timing import sink
+    mg = _cuda_multigrid(N, k)
+    assert mg.graph is not None
+    assert mg.graph.x.H.dtype == torch.float64
+    with sink(t := {}):
+        for seed in range(4):
+            r = _cuda_grid(mg.graph.x, seed)
+            z = mg.precondition(r)
+            assert _rel_diff(z, multigrid._vcycle(mg, 0, r)) < 1e-12
+    assert t["mg_graph_replay_calls"] == 4
+
+
+@pytest.mark.cuda
+def test_vcycle_graph_result_survives_the_next_call():
+    """A result held across the next call is left as it was: each call
+    returns a copy of the graph's static output (CG keeps the first
+    call's result as its direction while it calls again)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    mg = _cuda_multigrid(64, 1)
+    r1, r2 = _cuda_grid(mg.graph.x, 1), _cuda_grid(mg.graph.x, 2)
+    z1 = mg.precondition(r1)
+    held = GridVecCL(z1.H.clone(), z1.V.clone())
+    z2 = mg.precondition(r2)
+    torch.cuda.synchronize()
+    assert torch.equal(z1.H, held.H) and torch.equal(z1.V, held.V)
+    assert z1.H.data_ptr() != mg.graph.y.H.data_ptr()
+    assert _rel_diff(z2, multigrid._vcycle(mg, 0, r2)) < 1e-12
+
+
+@pytest.mark.cuda
+def test_solve_with_vcycle_graph_matches_eager(monkeypatch):
+    """solve_fictdom_structured(64, 1) (lean + MG, tol 1e-10) with the
+    V-cycle graphed against the same solve with it run op by op: the same
+    iteration count and exit, local dofs within 1e-12 relative; every
+    V-cycle call of CG replayed the graph (captured once, in mg_setup,
+    so no call of CG was a warm-up or a capture), and the eager solve
+    counts no graph span."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    params = cg.CGParams(convergence_threshold=1e-10,
+                         divergence_threshold=1e8, max_iter=50000,
+                         apply_preconditioner=True)
+    graphed = fs.solve_fictdom_structured(64, 1, cg_params=params)
+    _no_capture(monkeypatch)
+    eager = fs.solve_fictdom_structured(64, 1, cg_params=params)
+    assert graphed.exit_reason == eager.exit_reason == cg.CONVERGED
+    assert graphed.iterations == eager.iterations
+    diff = float((graphed.local - eager.local).abs().max())
+    assert diff < 1e-12 * float(eager.local.abs().max())
+    t = graphed.timings
+    assert t["mg_graph_capture_calls"] == 1
+    assert t["mg_graph_replay_calls"] == t["cg_precond_calls"] == \
+        graphed.iterations
+    assert not [key for key in eager.timings if key.startswith("mg_graph")]
+
+
+@pytest.mark.cuda
+def test_interface_vcycle_graph_matches_eager(monkeypatch):
+    """The interface problem's preconditioner (uniform MG + cut-band
+    Schwarz) at 64^2 k=1 on the card, its V-cycle graphed, against the
+    same system's with the V-cycle run op by op: equal to 1e-12 relative
+    over several residuals."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from proton_tpu_torch.cut import classify, interface_problem as ip
+
+    p, hdi, parms = fs.default_problem(), HHODegreeInfo(2, 1), \
+        ip.InterfaceParams()
+    mesh, cd = classify.cut_preprocess(
+        make_poly_mesh(Nx=64, Ny=64, device="cuda"), p.ls, 4)
+    asm = ip.assemble_interface(mesh, cd, p.ls, hdi, p.rhs_fun, p.sol_fun,
+                                parms)
+    graphed = ip.condensed_face_system(mesh, asm, hdi, parms)
+    _no_capture(monkeypatch)
+    eager = ip.condensed_face_system(mesh, asm, hdi, parms)
+    assert graphed.preconditioner == eager.preconditioner == "mg"
+    g = torch.Generator(device="cuda").manual_seed(5)
+    for _ in range(3):
+        r = torch.randn(graphed.rhs.shape, generator=g, device="cuda",
+                        dtype=graphed.rhs.dtype)
+        z, ref = graphed.precond(r), eager.precond(r)
+        assert float((z - ref).abs().max()) < 1e-12 * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+def test_mixed_vcycle_graph_matches_eager():
+    """Under mixed=True (the stored system and the V-cycle in float32)
+    the graph is captured in float32 and equals the float32 V-cycle run
+    op by op at float32 rounding (1e-5 relative)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    mg = _cuda_multigrid(64, 1, mixed=True)
+    assert mg.graph.x.H.dtype == torch.float32
+    for seed in range(3):
+        r = _cuda_grid(mg.graph.x, seed)
+        assert _rel_diff(mg.precondition(r), multigrid._vcycle(mg, 0, r)) \
+            < 1e-5
+
+
+@pytest.mark.cuda
+def test_vcycle_graph_leaves_no_memory_behind():
+    """Multigrids captured and freed one after another leave the card's
+    allocated memory where it was: the graph's pool, its static buffers
+    and the cuBLAS workspace of its capture stream go with it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import gc
+
+    a = torch.ones((64, 64), dtype=torch.float64, device="cuda")
+
+    def settled():
+        gc.collect()
+        torch.mm(a, a)                  # the eager stream's cuBLAS workspace
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated()
+
+    mg = _cuda_multigrid(64, 1)         # the caches of the level set-up
+    del mg
+    before = settled()
+    for seed in range(3):
+        mg = _cuda_multigrid(64, 1)
+        mg.precondition(_cuda_grid(mg.graph.x, seed))
+        del mg
+    assert settled() == before
