@@ -29,6 +29,9 @@ reference = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(reference)
 
 DTYPES = {"float64": torch.float64}
+# the control's options to ``run`` (readings.py): the program's float32
+# system around a float64 CG
+CONTROL = {"mixed": True}
 
 
 class Outcome(NamedTuple):
@@ -52,10 +55,11 @@ def _solve(config: dict, params: dict, device, max_iter: int, **options):
         dtype=DTYPES[config["dtype"]], **options)
 
 
-def warm(config: dict, device) -> None:
+def warm(config: dict, device) -> dict:
     """The cell's shapes and kernels, by one problem of the reference's
-    geometry with CG capped at 2 iterations."""
-    _solve(config, {"radius": 0.35, "center": [0.5, 0.5]}, device, 2)
+    geometry with CG capped at 2 iterations. Returns its spans."""
+    res = _solve(config, {"radius": 0.35, "center": [0.5, 0.5]}, device, 2)
+    return dict(res.timings)
 
 
 def run(config: dict, params: dict, device, max_iter: int = 0,

@@ -15,13 +15,14 @@ everything the cell names as a file of its own under ``benchmark/``:
   returns a number or None (then the metric is left out of the line).
 
 Set-up (imports, CUDA context, the kernels loaded or built, one warm-up
-problem) is ``setup_s``. Then whole problems run back to back: a new one
-starts while fewer than ``seconds`` have elapsed or while the traffic
-pool's round is unfinished, and the one running when they elapse
-finishes and counts. After the window the peak memory is
-read, the program's state is freed, every problem's answer is judged, the
-process is checked for JAX, and the last line of standard output is the
-result.
+problem) is ``setup_s``; standard error gives it by part (``setup
+parts``) and the warm-up problem's spans (``setup warm``). Then whole
+problems run back to back: a new one starts while fewer than ``seconds``
+have elapsed or while the traffic pool's round is unfinished, and the one
+running when they elapse finishes and counts. After the window the peak
+memory is read, the program's state is freed, every problem's answer is
+judged, the process is checked for JAX, and the last line of standard
+output is the result.
 """
 
 from __future__ import annotations
@@ -196,15 +197,31 @@ def measure(root: Path, name: str, seed: int, seconds: float, trace: bool,
     """One run: returns the result line (a dict) and the check lines.
     ``device`` is found from the cell's chips unless given (the CPU tests
     give it)."""
+    clock = time.perf_counter
+    marks = [("import_s", clock())]
     cell = load_cell(root, name)
     if device is None:
         device = require_cards(cell.chips)
+    _sync(device)
+    marks.append(("context_s", clock()))
     driver = cell.driver()
     problems = cell.generator().problems(cell.traffic, cell.config, seed)
-    driver.warm(cell.config, device)
+    marks.append(("driver_s", clock()))
+    warm_timings = driver.warm(cell.config, device)
     _sync(device)
-    setup_s = time.perf_counter() - t_start
+    marks.append(("warm_s", clock()))
+    setup_s = marks[-1][1] - t_start
     print(f"setup {setup_s:.3f} s", file=stderr, flush=True)
+    # set-up by part: the imports before the run, the CUDA context, the
+    # program's and the reference's imports, the warm-up problem (and its
+    # spans, where the driver returns them)
+    ends = [t_start] + [t for _, t in marks]
+    print("setup parts " + json.dumps(
+        {part: round(t - ends[i], 4) for i, (part, t) in enumerate(marks)}),
+        file=stderr, flush=True)
+    if warm_timings:
+        print("setup warm " + json.dumps(warm_timings), file=stderr,
+              flush=True)
 
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)

@@ -1,6 +1,8 @@
 """A small copy of the benchmark for the CPU tests: the real files, plus a
 16^2 configuration and its cell added as new files, without editing any
-file of the benchmark."""
+file of the benchmark. The cell opts in to the phase metrics that the
+1024^2 cells report, as a later change that adds a cell names it in the
+metrics it reads."""
 
 import json
 import shutil
@@ -19,12 +21,17 @@ SMALL_CELL = "tiny_16_k1.solve"
 # h1 4.43e-3, h1_gap 1e-15 (the mixed control: cell_res 6.0e-7)
 SMALL_LIMITS = {"cg_exit": 0, "face_res": 2e-6, "cell_res": 1e-9,
                 "h1": 6e-3, "h1_gap": 1e-8}
+# the per-layer metrics the small cell reports
+SMALL_METRICS = ("classify_s.solve", "assembly_s.solve", "mg_setup_s.solve",
+                 "cg_iters.solve", "cg_iter_ms.solve",
+                 "device_idle_pct.solve")
 
 
 def add_cell(root: Path, name: str, config_name: str, config: dict,
-             traffic: str, limits: dict, trace=None) -> None:
+             traffic: str, limits: dict, trace=None, metrics=()) -> None:
     """A configuration, a cell file and their manifest entries, as a later
-    change adds them."""
+    change adds them; the cell is appended to the ``workloads`` of the
+    per-layer ``metrics``."""
     bench = root / "benchmark"
     (bench / "configs" / f"{config_name}.json").write_text(json.dumps(config))
     cell = {"limits": limits}
@@ -39,13 +46,16 @@ def add_cell(root: Path, name: str, config_name: str, config: dict,
     manifest["workloads"].append({"name": name, "config": config_name,
                                   "traffic": traffic, "chips": 1,
                                   "why": "test"})
+    for m in manifest["per_layer"]:
+        if m["name"] in metrics:
+            m["workloads"].append(name)
     (root / "BENCHMARK.json").write_text(json.dumps(manifest))
 
 
 @pytest.fixture
 def small_root(tmp_path):
     """A checkout-like folder: BENCHMARK.json and benchmark/, with the
-    16^2 cell added."""
+    16^2 cell added and named in ``SMALL_METRICS``."""
     shutil.copy(REPO / "BENCHMARK.json", tmp_path / "BENCHMARK.json")
     shutil.copytree(REPO / "benchmark", tmp_path / "benchmark",
                     ignore=shutil.ignore_patterns("__pycache__", "tests"))
@@ -57,7 +67,7 @@ def small_root(tmp_path):
     trace["start"] = 2
     trace["calls"] = 3
     add_cell(tmp_path, SMALL_CELL, "tiny_16_k1", config, "circles_pool3",
-             SMALL_LIMITS, trace)
+             SMALL_LIMITS, trace, SMALL_METRICS)
     return tmp_path
 
 

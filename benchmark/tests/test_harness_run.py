@@ -101,3 +101,24 @@ def test_same_seed_same_problems(small_root):
 def test_unknown_cell_is_refused(small_root):
     with pytest.raises(harness.HarnessError):
         run(small_root, cell="no_such.cell")
+
+
+def test_setup_is_split_on_stderr(small_root):
+    """Standard error gives set-up by part, the parts summing to
+    ``setup_s``, and the warm-up problem's spans."""
+    err = io.StringIO()
+    result, _ = harness.measure(small_root, SMALL_CELL, 7, 0.0, False,
+                                time.perf_counter(), device=CPU, stderr=err)
+    lines = err.getvalue().splitlines()
+
+    def after(prefix):
+        return json.loads(next(ln for ln in lines
+                               if ln.startswith(prefix))[len(prefix):])
+
+    parts = after("setup parts ")
+    assert list(parts) == ["import_s", "context_s", "driver_s", "warm_s"]
+    assert all(v >= 0 for v in parts.values())
+    assert sum(parts.values()) == pytest.approx(
+        result["metrics"]["setup_s"]["value"], abs=1e-3)
+    warm = after("setup warm ")
+    assert warm["classify_s"] > 0 and warm["assembly_s"] > 0
