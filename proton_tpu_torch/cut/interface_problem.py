@@ -34,7 +34,7 @@ from ..core.ops import HHODegreeInfo, cell_rhs, cho_solve_batched, \
     robust_spd_solve, spd_inverse
 from ..methods import assembly, condensation, hho
 from ..solvers import cg
-from ..utils.timing import sink, span
+from ..utils.timing import count, sink, span
 from . import methods as cut_methods
 from .classify import LOC_CUT, LOC_NEG, LOC_POS, CutData, cut_preprocess
 from .levelset import LevelSet
@@ -146,6 +146,7 @@ class InterfaceResult(NamedTuple):
     h1_error: float
     iterations: int
     exit_reason: int
+    rel_residual: float = float("nan")   # CG's relative residual
 
 
 def _flat_scatter(n: int, idx, vals):
@@ -183,105 +184,110 @@ def _interface_mg_precond(mesh, dm: InterfaceDofMap, n_face_dofs: int,
     def t(a):
         return torch.as_tensor(np.ascontiguousarray(a), device=dev)
 
-    # ---- host maps: grid face -> condensed dof start (both copies) ----
-    cf = mesh.cell_faces.cpu().numpy()
-    cells = np.arange(N * N).reshape(N, N)
-    fH = np.empty((N + 1, N), np.int64)
-    fH[:N] = cf[cells, 0]
-    fH[N] = cf[cells[N - 1], 2]
-    fV = np.empty((N, N + 1), np.int64)
-    fV[:, :N] = cf[cells, 3]
-    fV[:, N] = cf[cells[:, N - 1], 1]
-    face_start = dm.face_table.cpu().numpy() * fbs
-    is_cut = dm.face_is_cut.cpu().numpy()
-    is_dir = mesh.face_bnd.cpu().numpy() == BND_DIRICHLET
+    with span("mg_setup", dev):
+        # ---- host maps: grid face -> condensed dof start (both copies) ----
+        cf = mesh.cell_faces.cpu().numpy()
+        cells = np.arange(N * N).reshape(N, N)
+        fH = np.empty((N + 1, N), np.int64)
+        fH[:N] = cf[cells, 0]
+        fH[N] = cf[cells[N - 1], 2]
+        fV = np.empty((N, N + 1), np.int64)
+        fV[:, :N] = cf[cells, 3]
+        fV[:, N] = cf[cells[:, N - 1], 1]
+        face_start = dm.face_table.cpu().numpy() * fbs
+        is_cut = dm.face_is_cut.cpu().numpy()
+        is_dir = mesh.face_bnd.cpu().numpy() == BND_DIRICHLET
 
-    def copy_idx(fgrid, cp):
-        base = face_start[fgrid] + cp * fbs
-        dead = is_dir[fgrid] if cp == 0 else (is_dir[fgrid] | ~is_cut[fgrid])
-        idx = base[..., None] + np.arange(fbs)
-        return t(np.where(dead[..., None], sent, idx))
+        def copy_idx(fgrid, cp):
+            base = face_start[fgrid] + cp * fbs
+            dead = is_dir[fgrid] if cp == 0 else \
+                (is_dir[fgrid] | ~is_cut[fgrid])
+            idx = base[..., None] + np.arange(fbs)
+            return t(np.where(dead[..., None], sent, idx))
 
-    iH0, iH1 = copy_idx(fH, 0), copy_idx(fH, 1)
-    iV0, iV1 = copy_idx(fV, 0), copy_idx(fV, 1)
+        iH0, iH1 = copy_idx(fH, 0), copy_idx(fH, 1)
+        iV0, iV1 = copy_idx(fV, 0), copy_idx(fV, 1)
 
-    # ---- uniform fitted MG hierarchy (no cut sets) ----
-    nfd4 = 4 * fbs
-    sizes = multigrid._mg_sizes(N, coarsest)
-    uniform_per_level = {
-        n: (_unit_cell_host(hdi, 1.0 / n, dev)[0], np.zeros(0, np.int64))
-        for n in sizes}
-    S_per_level = {n: torch.zeros((nfd4 * nfd4, 0), dtype=dtype, device=dev)
-                   for n in sizes}
-    mg = multigrid.build_multigrid(N, fbs, S_per_level, hdi, n_smooth=1,
-                                   coarsest=coarsest, cheb_degree=4,
-                                   uniform_per_level=uniform_per_level)
+        # ---- uniform fitted MG hierarchy (no cut sets) ----
+        nfd4 = 4 * fbs
+        sizes = multigrid._mg_sizes(N, coarsest)
+        uniform_per_level = {
+            n: (_unit_cell_host(hdi, 1.0 / n, dev)[0],
+                np.zeros(0, np.int64)) for n in sizes}
+        S_per_level = {n: torch.zeros((nfd4 * nfd4, 0), dtype=dtype,
+                                      device=dev) for n in sizes}
+        mg = multigrid.build_multigrid(N, fbs, S_per_level, hdi, n_smooth=1,
+                                       coarsest=coarsest, cheb_degree=4,
+                                       uniform_per_level=uniform_per_level)
 
-    # ---- cut-band additive Schwarz over deduplicated patch dofs ----
-    # A cut cell's condensed block is singular (local constants), and the
-    # uncut faces of a cut cell map both copies to the same global dofs.
-    # The patch block lives on the cell's global face-dof set: scatter
-    # the cell couplings (duplicates merge), then overwrite each face's
-    # diagonal block with the fully assembled one, which adds the
-    # neighbours' contribution and breaks the constant kernel.
-    Cc, d2 = sys_c_S.shape[:2]
-    P = 8 * fbs                                   # 4 faces x max 2 copies
-    cf_c = cf[dm.cut_ids.cpu().numpy()]           # [Cc, 4]
-    wf = np.where(is_cut[cf_c], 2 * fbs, fbs)     # [Cc, 4] face widths
-    offs = np.concatenate([np.zeros((Cc, 1), np.int64),
-                           np.cumsum(wf, axis=1)], axis=1)     # [Cc, 5]
-    idx_c_np = idx_c.cpu().numpy()                # [Cc, 2nfd]
-    # local slot s (s%4 = geometric face, s//4 = copy) -> patch position
-    pos_map = np.empty((Cc, d2), np.int64)
-    for s in range(8):
-        f = cf_c[:, s % 4]
-        pos0 = offs[:, s % 4] + (idx_c_np[:, s * fbs] - face_start[f])
-        pos_map[:, s * fbs:(s + 1) * fbs] = pos0[:, None] + np.arange(fbs)
-    # global dof of each patch position (sentinel past the face width)
-    gidx = np.full((Cc, P), sent, np.int64)
-    for s in range(4):
-        for off in range(2 * fbs):
-            live = off < wf[:, s]
-            gidx[np.arange(Cc)[live], offs[live, s] + off] = \
-                face_start[cf_c[live, s]] + off
-    # out-of-range positions (a Dirichlet face of a cut cell at the end of
-    # the numbering) land on the sentinel: JAX clamps such gathers and
-    # drops such scatters
-    gidx_p = t(np.minimum(gidx, sent))
+    with span("band_setup", dev):
+        # ---- cut-band additive Schwarz over deduplicated patch dofs ----
+        # A cut cell's condensed block is singular (local constants), and
+        # the uncut faces of a cut cell map both copies to the same global
+        # dofs. The patch block lives on the cell's global face-dof set:
+        # scatter the cell couplings (duplicates merge), then overwrite each
+        # face's diagonal block with the fully assembled one, which adds
+        # the neighbours' contribution and breaks the constant kernel.
+        Cc, d2 = sys_c_S.shape[:2]
+        P = 8 * fbs                                   # 4 faces x max 2 copies
+        cf_c = cf[dm.cut_ids.cpu().numpy()]           # [Cc, 4]
+        wf = np.where(is_cut[cf_c], 2 * fbs, fbs)     # [Cc, 4] face widths
+        offs = np.concatenate([np.zeros((Cc, 1), np.int64),
+                               np.cumsum(wf, axis=1)], axis=1)     # [Cc, 5]
+        idx_c_np = idx_c.cpu().numpy()                # [Cc, 2nfd]
+        # local slot s (s%4 = geometric face, s//4 = copy) -> patch position
+        pos_map = np.empty((Cc, d2), np.int64)
+        for s in range(8):
+            f = cf_c[:, s % 4]
+            pos0 = offs[:, s % 4] + (idx_c_np[:, s * fbs] - face_start[f])
+            pos_map[:, s * fbs:(s + 1) * fbs] = \
+                pos0[:, None] + np.arange(fbs)
+        # global dof of each patch position (sentinel past the face width)
+        gidx = np.full((Cc, P), sent, np.int64)
+        for s in range(4):
+            for off in range(2 * fbs):
+                live = off < wf[:, s]
+                gidx[np.arange(Cc)[live], offs[live, s] + off] = \
+                    face_start[cf_c[live, s]] + off
+        # out-of-range positions (a Dirichlet face of a cut cell at the end
+        # of the numbering) land on the sentinel: JAX clamps such gathers
+        # and drops such scatters
+        gidx_p = t(np.minimum(gidx, sent))
 
-    # scatter the cell couplings into [Cc, P, P] (duplicates merge; out of
-    # range -> a dropped extra slot)
-    flat = (np.arange(Cc)[:, None, None] * (P * P) +
-            pos_map[:, :, None] * P + pos_map[:, None, :])
-    B = _flat_scatter(Cc * P * P + 1, t(np.minimum(flat, Cc * P * P)),
-                      sys_c_S)[:-1].reshape(Cc, P, P)
-    # overwrite the face-diagonal blocks with the assembled ones
-    FB = _assembled_face_blocks(dm, n_face_dofs, blocks_and_idx)
-    wmax = 2 * fbs
-    cell_rows = np.arange(Cc)[:, None, None] * ((P + 1) * (P + 1))
-    for s in range(4):
-        fb_s = FB[t(cf_c[:, s])]                  # [Cc, wmax, wmax]
-        ii = offs[:, s, None] + np.arange(wmax)[None, :]
-        live = np.arange(wmax)[None, :] < wf[:, s, None]
-        ii = np.where(live, ii, P)                # park dead at col P
-        rows = t(ii[:, :, None] * (P + 1) + ii[:, None, :] + cell_rows)
-        Bp = _flat_scatter(Cc * (P + 1) * (P + 1), rows, fb_s).reshape(
-            Cc, P + 1, P + 1)[:, :P, :P]
-        # zero the old diagonal block, then add the assembled one
-        blkmask = _flat_scatter(Cc * (P + 1) * (P + 1), rows,
-                                torch.ones_like(fb_s)).reshape(
-            Cc, P + 1, P + 1)[:, :P, :P]
-        B = B * (1.0 - torch.clamp(blkmask, max=1.0)) + Bp
-    live_p = gidx_p < sent
-    eye = torch.eye(P, dtype=dtype, device=dev)
-    B = torch.where(live_p[:, :, None] & live_p[:, None, :], B,
-                    torch.zeros_like(B)) + eye[None] * (~live_p)[:, None, :]
-    Binv = spd_inverse(B)
-    mult = _flat_scatter(sent + 1, gidx_p, live_p.to(dtype))
-    w_ext = torch.where(mult > 0, 1.0 / torch.sqrt(torch.clamp(mult,
-                                                               min=1.0)),
-                        torch.zeros_like(mult))
-    w_loc = w_ext[gidx_p] * live_p
+        # scatter the cell couplings into [Cc, P, P] (duplicates merge; out
+        # of range -> a dropped extra slot)
+        flat = (np.arange(Cc)[:, None, None] * (P * P) +
+                pos_map[:, :, None] * P + pos_map[:, None, :])
+        B = _flat_scatter(Cc * P * P + 1, t(np.minimum(flat, Cc * P * P)),
+                          sys_c_S)[:-1].reshape(Cc, P, P)
+        # overwrite the face-diagonal blocks with the assembled ones
+        FB = _assembled_face_blocks(dm, n_face_dofs, blocks_and_idx)
+        wmax = 2 * fbs
+        cell_rows = np.arange(Cc)[:, None, None] * ((P + 1) * (P + 1))
+        for s in range(4):
+            fb_s = FB[t(cf_c[:, s])]                  # [Cc, wmax, wmax]
+            ii = offs[:, s, None] + np.arange(wmax)[None, :]
+            live = np.arange(wmax)[None, :] < wf[:, s, None]
+            ii = np.where(live, ii, P)                # park dead at col P
+            rows = t(ii[:, :, None] * (P + 1) + ii[:, None, :] + cell_rows)
+            Bp = _flat_scatter(Cc * (P + 1) * (P + 1), rows, fb_s).reshape(
+                Cc, P + 1, P + 1)[:, :P, :P]
+            # zero the old diagonal block, then add the assembled one
+            blkmask = _flat_scatter(Cc * (P + 1) * (P + 1), rows,
+                                    torch.ones_like(fb_s)).reshape(
+                Cc, P + 1, P + 1)[:, :P, :P]
+            B = B * (1.0 - torch.clamp(blkmask, max=1.0)) + Bp
+        live_p = gidx_p < sent
+        eye = torch.eye(P, dtype=dtype, device=dev)
+        B = torch.where(live_p[:, :, None] & live_p[:, None, :], B,
+                        torch.zeros_like(B)) + \
+            eye[None] * (~live_p)[:, None, :]
+        Binv = spd_inverse(B)
+        mult = _flat_scatter(sent + 1, gidx_p, live_p.to(dtype))
+        w_ext = torch.where(mult > 0, 1.0 / torch.sqrt(torch.clamp(mult,
+                                                                   min=1.0)),
+                            torch.zeros_like(mult))
+        w_loc = w_ext[gidx_p] * live_p
 
     def precond(r):
         r_ext = torch.cat([r, r.new_zeros(1)])
@@ -513,7 +519,11 @@ def condensed_face_system(mesh, asm: InterfaceSystem, hdi: HHODegreeInfo,
     solve, the ill-conditioned class). The face system gets the uniform
     MG + cut-band Schwarz preconditioner on the generated mesh with
     constant kappa (``precond_kind`` 'auto' or 'mg'), per-face
-    block-Jacobi otherwise ('bj')."""
+    block-Jacobi otherwise ('bj'). Into the caller's sink it records the
+    spans ``condense`` (both classes, the Dirichlet fold, the right-hand
+    side and the operator) and, on the MG branch, ``mg_setup`` and
+    ``band_setup``, and counts ``iface_cut_cells`` and
+    ``iface_face_dofs`` (the condensed system's size)."""
     if precond_kind not in ("auto", "mg", "bj"):
         raise ValueError(f"unknown precond_kind '{precond_kind}'")
     dm = asm.dm
@@ -524,18 +534,23 @@ def condensed_face_system(mesh, asm: InterfaceSystem, hdi: HHODegreeInfo,
     def rebase(idx):
         return torch.where(idx >= dm.n_dofs, n_face_dofs, idx - face_base)
 
-    idx_u = rebase(dm.asm_uncut[:, cbs:])
-    idx_c = rebase(dm.asm_cut[:, 2 * cbs:])
-    sys_u = condensation.condense(asm.lc_uncut, asm.f_uncut, cbs)
-    sys_c = condensation.condense(asm.lc_cut, asm.loads_cut[:, :2 * cbs],
-                                  2 * cbs, robust=True)
-    # Dirichlet folds through the condensed operator (exact elimination)
-    gF_u = asm.g_uncut[:, cbs:]
-    bload_u = sys_u.bF - torch.bmm(sys_u.S, gF_u[..., None])[..., 0]
-    rhs = assembly.multi_assemble_rhs(n_face_dofs, [(idx_u, bload_u),
-                                                    (idx_c, sys_c.bF)])
-    apply = assembly.make_multi_operator(n_face_dofs, [(idx_u, sys_u.S),
-                                                       (idx_c, sys_c.S)])
+    count("iface_cut_cells", len(dm.cut_ids))
+    count("iface_face_dofs", n_face_dofs)
+    with span("condense", asm.lc_uncut.device):
+        idx_u = rebase(dm.asm_uncut[:, cbs:])
+        idx_c = rebase(dm.asm_cut[:, 2 * cbs:])
+        sys_u = condensation.condense(asm.lc_uncut, asm.f_uncut, cbs)
+        sys_c = condensation.condense(asm.lc_cut, asm.loads_cut[:, :2 * cbs],
+                                      2 * cbs, robust=True)
+        # Dirichlet folds through the condensed operator (exact
+        # elimination)
+        gF_u = asm.g_uncut[:, cbs:]
+        bload_u = sys_u.bF - torch.bmm(sys_u.S, gF_u[..., None])[..., 0]
+        rhs = assembly.multi_assemble_rhs(n_face_dofs, [(idx_u, bload_u),
+                                                        (idx_c, sys_c.bF)])
+        apply = assembly.make_multi_operator(n_face_dofs,
+                                             [(idx_u, sys_u.S),
+                                              (idx_c, sys_c.S)])
     faces_u = mesh.cell_faces[dm.uncut_ids]
     faces_c = mesh.cell_faces[dm.cut_ids].repeat(1, 2)
     blocks_and_idx = [(sys_u.S, idx_u[:, ::fbs], faces_u),
@@ -623,7 +638,8 @@ def solve_interface(mesh, cutdata: CutData, ls: LevelSet, degree: int,
             h1 = interface_h1_error(mesh, asm.geom, asm.batch, cutdata, hdi,
                                     local_neg, local_pos, sol_grad)
     return InterfaceResult(res.x, local_neg, local_pos, float(h1),
-                           res.iterations, res.exit_reason)
+                           res.iterations, res.exit_reason,
+                           float(res.rel_residual))
 
 
 def interface_h1_error(mesh, geom, batch: CutCellBatch, cutdata: CutData,

@@ -19,6 +19,9 @@ the spans deep in CG and the V-cycle need no argument. A span named
   opened inside it in the same sink);
 - ``x_calls``: 1.
 
+A counter, ``count(name, value)``, adds ``value`` to ``name`` in the
+active sink, and writes nothing where no sink is set.
+
 While a torch profiler runs, and only then, a span is also a
 ``torch.profiler.record_function`` range of its name, so it sits on the
 profiler's clock around the work it launches. With no sink and no
@@ -162,3 +165,11 @@ class span:
         if self._range is not None:
             self._range.__exit__(exc_type, exc, tb)
         return False
+
+
+def count(name: str, value) -> None:
+    """Add ``value`` to the counter ``name`` of the active sink (the
+    module docstring); nothing where no sink is set."""
+    s = _SINK.get()
+    if s is not None:
+        s.timings[name] = s.timings.get(name, 0) + value
