@@ -168,11 +168,17 @@ def _interface_mg_precond(mesh, dm: InterfaceDofMap, n_face_dofs: int,
     Poisson stencil): unit-cell levels with no irregular cells, n_smooth
     1, Chebyshev(4), no patch smoother. P injects each structured
     face-grid value into both copies of a doubled face (P^T sums them).
-    The band term is exact-solve additive Schwarz over the cut cells'
-    condensed blocks on their deduplicated face dofs,
-    1/sqrt(multiplicity)-weighted. Both parts are SPD. Every index map
-    is built here, on the host, and moved to the device once: the
-    returned apply copies nothing from the host and reads nothing back."""
+    Every condensed face dof is copy 0 of a non-Dirichlet face or copy 1
+    of a cut face, so it has exactly one grid entry: P is one gather
+    (``inv``), P^T the copy-0 gather plus the cut faces' second copies,
+    and neither writes any entry twice or needs atomics. The band term
+    is exact-solve additive Schwarz over the cut cells' condensed blocks
+    on their deduplicated face dofs, 1/sqrt(multiplicity)-weighted. Both
+    parts are SPD. Every index map is built here, on the host, and moved
+    to the device once: the returned apply copies nothing from the host
+    and reads nothing back. Counts ``iface_copy_sentinel_writes``: the
+    entries of P's map that name the sentinel slot instead of a grid
+    value (0)."""
     from ..methods.cells_last import GridVecCL
     from ..solvers import multigrid
     from .fictdom_structured import _unit_cell_host
@@ -198,15 +204,31 @@ def _interface_mg_precond(mesh, dm: InterfaceDofMap, n_face_dofs: int,
         is_cut = dm.face_is_cut.cpu().numpy()
         is_dir = mesh.face_bnd.cpu().numpy() == BND_DIRICHLET
 
-        def copy_idx(fgrid, cp):
-            base = face_start[fgrid] + cp * fbs
-            dead = is_dir[fgrid] if cp == 0 else \
-                (is_dir[fgrid] | ~is_cut[fgrid])
-            idx = base[..., None] + np.arange(fbs)
-            return t(np.where(dead[..., None], sent, idx))
-
-        iH0, iH1 = copy_idx(fH, 0), copy_idx(fH, 1)
-        iV0, iV1 = copy_idx(fV, 0), copy_idx(fV, 1)
+        # the V-cycle's grids [fbs, N+1, N] (H) and [fbs, N, N+1] (V),
+        # flattened one after the other: face and basis function per entry
+        nH = fbs * fH.size
+        faces = np.concatenate([np.tile(fH.reshape(-1), fbs),
+                                np.tile(fV.reshape(-1), fbs)])
+        comp = np.concatenate([np.repeat(np.arange(fbs), fH.size),
+                               np.repeat(np.arange(fbs), fV.size)])
+        G = faces.size
+        dof0 = face_start[faces] + comp
+        live0 = ~is_dir[faces]
+        cut_pos = np.nonzero(is_cut[faces])[0]
+        # P^T: Dirichlet entries read the zero appended to r
+        g0 = np.where(live0, dof0, sent)
+        cut_dof = dof0[cut_pos] + fbs
+        # P: the grid entry of every condensed dof; the last entry, the
+        # band's dropped slot, reads a zero appended to the grids
+        inv = np.full(sent + 1, G, np.int64)
+        inv[dof0[live0]] = np.nonzero(live0)[0]
+        inv[cut_dof] = cut_pos
+        count("iface_copy_sentinel_writes",
+              int(np.count_nonzero(inv[:sent] == G)))
+        if G + 1 > np.iinfo(np.int32).max:
+            raise ValueError(f"{N}x{N} face grids exceed int32 indices")
+        g0, cut_pos, cut_dof, inv = (t(a.astype(np.int32)) for a in
+                                     (g0, cut_pos, cut_dof, inv))
 
         # ---- uniform fitted MG hierarchy (no cut sets) ----
         nfd4 = 4 * fbs
@@ -291,15 +313,13 @@ def _interface_mg_precond(mesh, dm: InterfaceDofMap, n_face_dofs: int,
 
     def precond(r):
         r_ext = torch.cat([r, r.new_zeros(1)])
-        # [fbs, N+1, N] and [fbs, N, N+1] grids, P^T r
-        H = (r_ext[iH0] + r_ext[iH1]).permute(2, 0, 1).contiguous()
-        V = (r_ext[iV0] + r_ext[iV1]).permute(2, 0, 1).contiguous()
-        z = mg.precondition(GridVecCL(H, V))
-        out = r.new_zeros(sent + 1)
-        for i0, i1, zg in ((iH0, iH1, z.H), (iV0, iV1, z.V)):
-            zl = zg.permute(1, 2, 0).reshape(-1)
-            out.index_add_(0, i0.reshape(-1), zl)
-            out.index_add_(0, i1.reshape(-1), zl)
+        # P^T r on the grids; the cut faces' indices are distinct
+        g = r_ext.index_select(0, g0).index_add_(
+            0, cut_pos, r.index_select(0, cut_dof))
+        z = mg.precondition(GridVecCL(g[:nH].view(fbs, N + 1, N),
+                                      g[nH:].view(fbs, N, N + 1)))
+        out = torch.cat([z.H.reshape(-1), z.V.reshape(-1),
+                         r.new_zeros(1)]).index_select(0, inv)
         rl = w_loc * r_ext[gidx_p]
         zl = torch.bmm(Binv, rl[..., None])[..., 0]
         out.index_add_(0, gidx_p.reshape(-1), (w_loc * zl).reshape(-1))
@@ -522,8 +542,9 @@ def condensed_face_system(mesh, asm: InterfaceSystem, hdi: HHODegreeInfo,
     block-Jacobi otherwise ('bj'). Into the caller's sink it records the
     spans ``condense`` (both classes, the Dirichlet fold, the right-hand
     side and the operator) and, on the MG branch, ``mg_setup`` and
-    ``band_setup``, and counts ``iface_cut_cells`` and
-    ``iface_face_dofs`` (the condensed system's size)."""
+    ``band_setup``, and counts ``iface_cut_cells``, ``iface_face_dofs``
+    (the condensed system's size) and, on the MG branch,
+    ``iface_copy_sentinel_writes``."""
     if precond_kind not in ("auto", "mg", "bj"):
         raise ValueError(f"unknown precond_kind '{precond_kind}'")
     dm = asm.dm

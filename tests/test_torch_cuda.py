@@ -535,6 +535,48 @@ def test_interface_vcycle_graph_matches_eager(monkeypatch):
 
 
 @pytest.mark.cuda
+def test_interface_precond_on_card_matches_cpu(monkeypatch):
+    """The interface problem's preconditioner (its copy maps, the graphed
+    V-cycle and the cut band) built on the card at 64^2 k=1 and the same
+    function built on the CPU from the same inputs, moved there: equal to
+    1e-12 relative over several residuals."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from proton_tpu_torch.cut import classify, interface_problem as ip
+
+    p, hdi, parms = fs.default_problem(0.35, (0.5 + 0.3 / 64, 0.5)), \
+        HHODegreeInfo(2, 1), ip.InterfaceParams()
+    mesh, cd = classify.cut_preprocess(
+        make_poly_mesh(Nx=64, Ny=64, device="cuda"), p.ls, 4)
+    asm = ip.assemble_interface(mesh, cd, p.ls, hdi, p.rhs_fun, p.sol_fun,
+                                parms)
+    seen, real = [], ip._interface_mg_precond
+    monkeypatch.setattr(ip, "_interface_mg_precond",
+                        lambda *a: seen.append(a) or real(*a))
+    card = ip.condensed_face_system(mesh, asm, hdi, parms)
+    assert card.preconditioner == "mg"
+
+    def host(a):
+        if isinstance(a, torch.Tensor):
+            return a.cpu()
+        if isinstance(a, (tuple, list)):
+            return type(a)(host(b) for b in a)
+        if dataclasses.is_dataclass(a):
+            return dataclasses.replace(a, **{
+                f.name: host(getattr(a, f.name))
+                for f in dataclasses.fields(a)})
+        return a
+
+    cpu_precond = real(*host(seen[0]))
+    g = torch.Generator(device="cuda").manual_seed(20)
+    for _ in range(3):
+        r = torch.randn(card.rhs.shape, generator=g, device="cuda",
+                        dtype=card.rhs.dtype)
+        z, ref = card.precond(r).cpu(), cpu_precond(r.cpu())
+        assert float((z - ref).abs().max()) < 1e-12 * float(ref.abs().max())
+
+
+@pytest.mark.cuda
 def test_mixed_vcycle_graph_matches_eager():
     """Under mixed=True (the stored system and the V-cycle in float32)
     the graph is captured in float32 and equals the float32 V-cycle run
